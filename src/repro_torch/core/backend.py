@@ -1,0 +1,56 @@
+"""Static backend dispatch and device resolution for the port.
+
+The two kernelized hot-path primitives -- the CLOCK tracker update
+(§4.3) and approx-MSC candidate scoring (§5) -- each exist twice: a plain
+PyTorch version and a hand-written CUDA kernel under
+``repro_torch.kernels``.  This module decides which one runs.
+
+* ``"reference"`` runs the plain PyTorch version on any device.
+* ``"cuda"`` launches the kernel for CUDA tensors.  The plain version is
+  taken only for tensors that lie on the CPU; any other device raises.
+
+Dispatch is static: ``backend`` comes from ``EngineConfig`` and is never
+read off tensor values.  There is no fallback from a CUDA tensor to the
+plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+REFERENCE = "reference"
+CUDA = "cuda"
+BACKENDS = (REFERENCE, CUDA)
+
+
+def check(backend: str) -> str:
+    """Validate a backend name (raise early, not mid-step)."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    return backend
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card: the port's entry points run on CUDA unless
+    the caller asks for another device (the CPU tests pass ``"cpu"``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev
+
+
+def use_kernel(backend: str, t: torch.Tensor) -> bool:
+    """True when ``backend`` asks for the kernel and ``t`` lies on a card;
+    False for the plain version (backend "reference", or a CPU tensor).
+    Raises for any other device: nothing falls back silently."""
+    if backend == REFERENCE:
+        return False
+    check(backend)
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(
+        f"backend {backend!r} has no kernel for device {t.device}")

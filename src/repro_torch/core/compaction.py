@@ -1,0 +1,264 @@
+"""Compaction engine (PrismDB §4.2, §5.3, §6), run to completion.
+
+One compaction: select a key range (power-of-k + MSC), pin or demote the
+range's fast-tier objects, read the overlapping slow-tier run window,
+drop superseded run objects, optionally promote hot run objects, merge
+the survivors and the demotions into fresh runs (new Bloom filters,
+directory entries, incremental index maintenance), update tracker
+location bits, bucket statistics and counters.  A port of the JAX
+package's ``compact_once`` for two tiers.
+
+Pool-sized tensors (both tiers' keys, values, versions, run ids, the run
+directory, the Bloom filters and the tracker's location bits) are written
+IN PLACE: ``compact_once`` consumes the state it is given.  Values that
+the JAX package reads from the pre-compaction state are gathered before
+the first write.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import bloom, mapper, msc, prng, tracker
+from repro_torch.core.tiers import TierConfig, TierState, bucket_of
+from repro_torch.core.utils import (PADKEY, add_where, alloc_slots, fdiv,
+                                    merge_index_update, nonzero_fixed,
+                                    searchsorted, segment_in_range,
+                                    set_where, sorted_lookup, take)
+
+
+class CompactionStats(NamedTuple):
+    selected_lo: torch.Tensor
+    selected_hi: torch.Tensor
+    score: torch.Tensor
+    n_demoted: torch.Tensor
+    n_promoted: torch.Tensor
+    n_merged: torch.Tensor
+    n_superseded: torch.Tensor   # stale slow copies merged away
+    n_run_read: torch.Tensor     # slow objects read (whole window, seq I/O)
+    n_run_written: torch.Tensor  # slow objects written (new runs, seq I/O)
+
+
+def compact_once(state: TierState, cfg: TierConfig, key: torch.Tensor,
+                 promote: bool = True, precise: bool = False,
+                 cap_fast: int | None = None, cap_slow: int | None = None,
+                 force_pin_keys: torch.Tensor | None = None,
+                 selection: str = "msc", pin_mode: str = "object",
+                 backend: str = "reference"
+                 ) -> tuple[TierState, CompactionStats]:
+    """One compaction at the slab/run boundary.  ``backend`` routes the
+    approx-MSC candidate scoring through the msc_score kernel."""
+    if state.n_tiers != 2:
+        raise NotImplementedError("n_tiers > 2 is not ported yet (ROADMAP "
+                                  "Queue 1: N=3 compact_boundary)")
+    dev = state.keys[0].device
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    cnt = lambda m: m.sum(dtype=i32)
+    cap_fast = cap_fast or 2 * cfg.run_size
+    cap_slow = cap_slow or 2 * cfg.run_size * max(cfg.range_fanout_i, 1)
+    r_sel, r_pin, _ = prng.split(key, 3)
+
+    cand, scores, best = msc.select_range(
+        state, cfg, r_sel, precise=precise, cap_fast=cap_fast,
+        cap_slow=cap_slow, selection=selection, backend=backend)
+    lo, hi = take(cand.lo, best), take(cand.hi, best)
+    run_start, run_span = take(cand.run_start, best), take(cand.run_span,
+                                                          best)
+
+    hist = tracker.clock_histogram(state.tracker)
+    # capacity guard: the pin budget leaves headroom below fast capacity
+    tracked_total = hist.sum().to(f32).clamp(min=1.0)
+    cap_frac = fdiv(0.6 * cfg.fast_slots, tracked_total)
+    threshold = torch.minimum(
+        torch.full((), cfg.pin_threshold, dtype=f32, device=dev), cap_frac)
+    probs = mapper.pin_probabilities(hist, threshold)
+
+    # ---- fast-tier range: pin or demote --------------------------------
+    fidx_keys, fidx_slots = state.idx_keys[0], state.idx_slots[0]
+    fpos, fm = segment_in_range(fidx_keys, lo, hi, cap_fast)
+    fkeys = torch.where(fm, fidx_keys[fpos], PADKEY)
+    fslots = torch.where(fm, fidx_slots[fpos], 0).to(i64)
+    tomb = state.fast_ver[fslots] < 0
+    clock, tracked = tracker.lookup_clock(state.tracker, fkeys)
+    if pin_mode == "none":
+        pinned = torch.zeros_like(fm)
+    elif pin_mode == "file":
+        per_obj = probs[clock.to(i64).clamp(0, 3)] * tracked.to(f32)
+        avg = torch.where(fm, per_obj, 0.0).sum() \
+            / fm.to(f32).sum().clamp(min=1.0)
+        pinned = fm & ~tomb & (avg >= 0.5)
+    else:
+        pinned = mapper.pin_decisions(clock, tracked, probs, r_pin) \
+            & fm & ~tomb
+    if force_pin_keys is not None:
+        pos_f = searchsorted(force_pin_keys, fkeys).clamp(
+            0, force_pin_keys.shape[0] - 1)
+        pinned = pinned | ((force_pin_keys[pos_f] == fkeys) & fm & ~tomb)
+    demote = fm & ~pinned                 # tombstones always leave fast tier
+    demote_data = demote & ~tomb          # tombstones carry no payload
+
+    # ---- slow-tier window ----------------------------------------------
+    sidx_keys, sidx_slots = state.idx_keys[1], state.idx_slots[1]
+    spos, sm = segment_in_range(sidx_keys, lo, hi, cap_slow)
+    skeys = torch.where(sm, sidx_keys[spos], PADKEY)
+    sslots = torch.where(sm, sidx_slots[spos], 0).to(i64)
+    _, in_fast = sorted_lookup(fidx_keys, fidx_slots, skeys)
+    superseded = in_fast & sm
+
+    # pre-write gathers (the JAX package reads the pre-compaction pools)
+    fast_keys, fast_vals, fast_ver = state.keys[0], state.vals[0], \
+        state.fast_ver
+    slow_keys, slow_vals, slow_run = state.keys[1], state.vals[1], \
+        state.runs[0]
+    svals = slow_vals[sslots]
+    mvals = torch.cat([fast_vals[fslots], svals])
+
+    # ---- free demoted fast slots, then install promotions --------------
+    nf = fast_keys.shape[0]
+    set_where(fast_keys, demote, fslots, -1)
+    set_where(fast_ver, demote, fslots, 0)
+    n_dem_total = cnt(demote)
+    sclock, stracked = tracker.lookup_clock(state.tracker, skeys)
+    fully_pinned = probs[sclock.to(i64).clamp(0, 3)] >= torch.full(
+        (), 0.999, dtype=f32, device=dev)
+    if promote:
+        promote_want = (sm & ~superseded & stracked & fully_pinned
+                        & (sclock >= cfg.promote_min_clock))
+    else:
+        promote_want = torch.zeros_like(sm)
+    rank = torch.cumsum(promote_want, 0, dtype=i32) - 1
+    promote_want = promote_want & (rank < n_dem_total)
+    pro_slots = alloc_slots(fast_keys, promote_want)
+    pro_ok = promote_want & (pro_slots >= 0)
+    set_where(fast_keys, pro_ok, pro_slots, skeys)
+    set_where(fast_vals, pro_ok, pro_slots, svals)
+    set_where(fast_ver, pro_ok, pro_slots, 1)
+    dropf = set_where(torch.zeros(nf, dtype=torch.bool, device=dev), demote,
+                      fslots, True)
+    fidx_keys, fidx_slots = merge_index_update(
+        fidx_keys, fidx_slots, dropf, skeys, pro_slots, pro_ok)
+
+    survive = sm & ~superseded & ~pro_ok
+
+    # ---- merge (sorted; PADKEY sorts to the tail) ----------------------
+    mkeys = torch.cat([torch.where(demote_data, fkeys, PADKEY),
+                       torch.where(survive, skeys, PADKEY)])
+    order = torch.argsort(mkeys, stable=True)
+    mkeys, mvals = mkeys[order], mvals[order]
+    mvalid = mkeys != PADKEY
+    n_merged = cnt(mvalid)
+
+    # ---- free the window runs' slots -----------------------------------
+    r = cfg.max_runs
+    fan = cfg.range_fanout_i
+    run_active, run_lo, run_hi, run_count = (
+        state.dir_active[0], state.dir_lo[0], state.dir_hi[0],
+        state.dir_count[0])
+    lo_key = torch.where(run_active, run_lo, PADKEY)
+    order_runs = torch.argsort(lo_key, stable=True)
+    pos_in_order = searchsorted(lo_key[order_runs],
+                                take(run_lo, run_start.to(i64).clamp(0, r - 1)))
+    ar_fan = torch.arange(fan, dtype=i64, device=dev)
+    win_pos = pos_in_order + ar_fan
+    win_rids = torch.where(
+        (run_start >= 0) & (ar_fan < run_span),
+        order_runs[win_pos.clamp(0, r - 1)], r)
+    in_window = (slow_run[:, None] == win_rids[None, :]).any(dim=1)
+    slow_keys.masked_fill_(in_window, -1)
+    slow_run.masked_fill_(in_window, -1)
+
+    # ---- write the merged output as sub-runs of <= run_size ------------
+    m_total = mkeys.shape[0]
+    n_sub = max(m_total // cfg.run_size, 1) + 1
+    mrank = torch.cumsum(mvalid, 0, dtype=i32) - 1
+    sub_of = torch.where(mvalid, torch.div(mrank, cfg.run_size,
+                                           rounding_mode="floor"),
+                         n_sub - 1).to(i64)
+    new_slots = alloc_slots(slow_keys, mvalid)
+    wrote = mvalid & (new_slots >= 0)
+    set_where(slow_keys, wrote, new_slots, mkeys)
+    set_where(slow_vals, wrote, new_slots, mvals)
+
+    all_fan = torch.ones(fan, dtype=torch.bool, device=dev)
+    set_where(run_active, all_fan, win_rids, False)
+    set_where(run_count, all_fan, win_rids, 0)
+    free_rids = nonzero_fixed(~run_active, n_sub, r)
+    set_where(slow_run, wrote, new_slots,
+              free_rids[sub_of.clamp(0, n_sub - 1)].to(i32))
+    sidx_keys, sidx_slots = merge_index_update(
+        sidx_keys, sidx_slots, in_window, mkeys, new_slots, wrote)
+
+    # per-sub-run counts and key bounds
+    sub_counts = torch.zeros(n_sub, dtype=i32, device=dev).index_add_(
+        0, sub_of, wrote.to(i32))
+    sub_first = torch.full((n_sub,), PADKEY, dtype=i32,
+                           device=dev).scatter_reduce_(
+        0, sub_of, torch.where(wrote, mkeys, PADKEY), reduce="amin",
+        include_self=True)
+    ar_sub = torch.arange(n_sub, dtype=i64, device=dev)
+    sub_lo = torch.where(ar_sub == 0, lo, sub_first)
+    nxt_first = torch.cat([sub_first[1:],
+                           torch.full((1,), PADKEY, dtype=i32, device=dev)])
+    sub_hi = torch.minimum(nxt_first, hi)
+    sub_ok = sub_counts > 0
+    set_where(run_active, sub_ok, free_rids, True)
+    set_where(run_lo, sub_ok, free_rids, sub_lo)
+    set_where(run_hi, sub_ok, free_rids, sub_hi)
+    set_where(run_count, sub_ok, free_rids, sub_counts)
+    blooms = state.dir_blooms[0]
+    rows = bloom.make_rows(mkeys, sub_of, wrote, n_sub, blooms.shape[1])
+    set_where(blooms, sub_ok, free_rids, rows)
+
+    # ---- tracker location bits -----------------------------------------
+    trk = tracker.set_location(state.tracker, fkeys, tracker.LOC_SLOW,
+                               demote)
+    trk = tracker.set_location(trk, skeys, tracker.LOC_FAST, pro_ok)
+
+    # ---- bucket statistics ---------------------------------------------
+    nb = cfg.n_buckets
+    fb, sb, mb = bucket_of(cfg, fkeys), bucket_of(cfg, skeys), \
+        bucket_of(cfg, mkeys)
+    bucket_fast, bucket_slow = state.bucket_fast, state.bucket_slow
+    add_where(bucket_fast, demote, fb, -1)
+    add_where(bucket_fast, pro_ok, sb, 1)
+    add_where(bucket_slow, sm, sb, -1)
+    add_where(bucket_slow, wrote, mb, 1)
+    b_width = max(cfg.key_space // nb, 1)
+    edges_lo = torch.arange(nb, dtype=i32, device=dev) * b_width
+    cover = fdiv((torch.minimum(edges_lo + b_width, hi)
+                  - torch.maximum(edges_lo, lo)).to(f32),
+                 float(b_width)).clamp(0.0, 1.0)
+    bucket_overlap = (state.bucket_overlap.to(f32) * (1.0 - cover)).to(i32)
+
+    # ---- counters (object units) ---------------------------------------
+    t_f = cnt(sm)
+    n_dem = cnt(demote_data)
+    n_pro = cnt(pro_ok)
+    n_sup = cnt(superseded)
+    zero = torch.zeros((), dtype=i32, device=dev)
+    c = state.ctr
+    ctr = c._replace(
+        compactions=c.compactions + 1,
+        demoted=c.demoted + n_dem,
+        promoted=c.promoted + n_pro,
+        reads=c.reads + torch.stack([n_dem, t_f]),
+        comp_reads=c.comp_reads + torch.stack([zero, t_f]),
+        writes=c.writes + torch.stack([n_pro, n_merged]),
+        comp_by_boundary=c.comp_by_boundary + 1,
+        rate_limited=c.rate_limited + cnt(mvalid & ~wrote))
+
+    stats = CompactionStats(
+        selected_lo=lo, selected_hi=hi, score=take(scores, best),
+        n_demoted=n_dem, n_promoted=n_pro, n_merged=n_merged,
+        n_superseded=n_sup, n_run_read=t_f, n_run_written=n_merged)
+    new_state = state._replace(
+        keys=(fast_keys, slow_keys), vals=(fast_vals, slow_vals),
+        fast_ver=fast_ver, runs=(slow_run,),
+        idx_keys=(fidx_keys, sidx_keys), idx_slots=(fidx_slots, sidx_slots),
+        dir_lo=(run_lo,), dir_hi=(run_hi,), dir_count=(run_count,),
+        dir_active=(run_active,), dir_blooms=(blooms,), tracker=trk,
+        bucket_fast=bucket_fast, bucket_slow=bucket_slow,
+        bucket_overlap=bucket_overlap, ctr=ctr)
+    return new_state, stats
+

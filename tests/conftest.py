@@ -8,3 +8,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 import jax
 
 jax.config.update("jax_platform_name", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (a CUDA kernel has no CPU "
+        "mode); skipped without one")
