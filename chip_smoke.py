@@ -344,7 +344,8 @@ def _readback(db, keys, batch: int) -> int:
 
 
 def main_path(scale: int, batch: int, seg: int, preload_frac: float,
-              device=None, preload_budget_s: float | None = None) -> dict:
+              device=None, preload_budget_s: float | None = None,
+              profile_steps: int = 8) -> dict:
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -434,8 +435,10 @@ def main_path(scale: int, batch: int, seg: int, preload_frac: float,
             / max(db.dispatches - d0, 1)}
 
     # device busy share and device-to-host copies over a YCSB-A window
+    # (the profiler's bookkeeping grows with the ops traced: a full-size
+    # compaction step traces thousands, so that window is kept short)
     from torch.profiler import ProfilerActivity, profile
-    stream = make_stream(rng, zipf, batch, 8, "A", db.device)
+    stream = make_stream(rng, zipf, batch, profile_steps, "A", db.device)
     torch.cuda.synchronize()
     h0 = engine.HOST_READS.n
     with profile(activities=[ProfilerActivity.CPU,
@@ -450,7 +453,7 @@ def main_path(scale: int, batch: int, seg: int, preload_frac: float,
     busy_us = sum(dev_us(e) for e in ka if not e.key.startswith("aten::")
                   and not e.key.startswith("cuda"))
     out["profile"] = {
-        "window_s": window, "steps": 8,
+        "window_s": window, "steps": profile_steps,
         "device_busy_share": busy_us / 1e6 / window,
         "host_reads": engine.HOST_READS.n - h0,
         "dtoh_copies": sum(e.count for e in ka if "DtoH" in e.key),
@@ -499,7 +502,7 @@ def main() -> int:
                     help="preload of the full-size run: past the fast "
                          "tier's watermark, so compactions run")
     ap.add_argument("--full-segment", type=int, default=16)
-    ap.add_argument("--full-preload-budget", type=float, default=300.0,
+    ap.add_argument("--full-preload-budget", type=float, default=240.0,
                     help="wall seconds after which the full-size preload "
                          "stops (keeps the smoke inside its time limit)")
     ap.add_argument("--phases",
@@ -521,6 +524,7 @@ def main() -> int:
     from repro_torch.configs.prismdb_kv import paper_tier_config
     from repro_torch.kernels import build
     phases = set(args.phases.split(","))
+    t_start = time.time()
     smi = smi_line()
     t0 = time.time()
     report = build.build_all()
@@ -550,12 +554,14 @@ def main() -> int:
     if "main_full" in phases:
         res = main_path(args.full_scale, args.batch, args.full_segment,
                         args.full_preload_frac,
-                        preload_budget_s=args.full_preload_budget)
+                        preload_budget_s=args.full_preload_budget,
+                        profile_steps=2)
         res["phase"] = "main_full"
         launches = res["launches"]       # the kernels line reports this run
         emit(res)
     for r in rows:
         r["launches"] = launches[r["name"]]
+    emit({"phase": "done", "elapsed_s": time.time() - t_start})
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
