@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port of PrismDB on one NVIDIA card.
 
-Run from the root of a checkout:  python3 chip_smoke.py [--scale S]
+Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each printed as one JSON line:
   1. device   -- nvidia-smi name/power limit, build of every CUDA kernel
@@ -10,18 +10,20 @@ Phases, each printed as one JSON line:
                  at the main path's shapes (clock_update bit-exact,
                  msc_score rtol 1e-5 with equal argmax), with CUDA-event
                  times and the card's bound for the same work
-  3. parity   -- the engine at paper_tier_config(scale=1): backend "cuda"
-                 vs "reference" on one op stream, integer state, counters
-                 and per-op results bit-equal
-  4. main     -- PrismDB(paper_tier_config(S), backend="cuda") through
+  3. parity   -- the engine at paper_tier_config(scale=1) on one op
+                 stream: backend "cuda" on the card vs "reference" on the
+                 card and on the CPU; state, counters and per-op results
+                 bit-equal
+  4. main     -- PrismDB(paper_tier_config(SCALE), backend="cuda") through
                  put/get/delete/scan_ops: preload 50% of the key space,
                  YCSB-A, YCSB-C and a scan segment; then main_full, the
-                 same at the paper's full size (100.7 M keys) with the
-                 preload cut to 12% of the key space; throughput, modeled
+                 same at the paper's full size (100.7 M keys) with a fixed
+                 preload of FULL_PRELOAD_KEYS; throughput, modeled
                  p50/p99/p999, host reads per step, peak memory, kernel
                  launches, device busy share; read-back of a sample of
                  preloaded keys (value == key) and of deleted keys
-Then the kernels line, the nvidia-smi line, and the final ok line.
+Then the kernels line, the nvidia-smi line, and the final ok line.  The
+sizes are the module constants below; PERF.md ("Scale used") says why.
 
 Exits non-zero, printing no result, when no CUDA device is available,
 when the port's sources are missing, or when any phase fails.  Long
@@ -29,7 +31,6 @@ reports go to chiprun_out/.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -41,6 +42,18 @@ OUT = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 FULL_SCALE = 1536              # paper §7: 100.7 M keys
+BATCH = 4096                   # client batch (ops per engine step)
+# The 50%-preload recipe runs at 1536 / 128: the largest halving of the
+# full scale whose run directory does not overflow (ROADMAP Queue 3) and
+# whose preload fits the time limit.
+SCALE = FULL_SCALE // 128
+SEGMENT = 64                   # client batches per YCSB segment at SCALE
+# The full-size state is preloaded with a fixed key count: past the fast
+# tier's 0.98 high watermark (10,961,113 keys), so compactions run, and
+# well inside the time limit (a 50% preload does not fit it).
+FULL_PRELOAD_KEYS = 2688 * BATCH          # 11,010,048 keys
+FULL_SEGMENT = 16
+FULL_PROFILE_STEPS = 2         # profiler bookkeeping grows per traced op
 
 
 def emit(obj: dict) -> None:
@@ -82,6 +95,7 @@ def check_clock_update(cfg, batch: int, rng) -> dict:
     # keys that collide on a slot: draw many, keep groups sharing a slot
     pool = torch.from_numpy(rng.integers(0, cfg.key_space, 1 << 20)
                             .astype(np.int32)).to(dev)
+    gen = lambda seed: torch.Generator(dev).manual_seed(seed)
     slots = tracker.slot_of(t, pool)
     order = torch.argsort(slots)
     s_sorted = slots[order]
@@ -95,18 +109,18 @@ def check_clock_update(cfg, batch: int, rng) -> dict:
         hot = torch.from_numpy(rng.integers(0, 4 * batch, batch // 4)
                                .astype(np.int32)).to(dev)
         coll = colliding[torch.randint(0, colliding.numel(), (batch // 4,),
-                                       device=dev,
-                                       generator=torch.Generator(dev)
-                                       .manual_seed(it))]
+                                       device=dev, generator=gen(it))]
         rnd = torch.from_numpy(rng.integers(0, cfg.key_space, batch // 2)
                                .astype(np.int32)).to(dev)
         keys = torch.cat([hot, coll, rnd])[torch.randperm(
-            batch, device=dev, generator=torch.Generator(dev).manual_seed(it))]
-        locs = torch.from_numpy(rng.integers(0, 2, batch).astype(np.int8)).to(dev)
+            batch, device=dev, generator=gen(it))]
+        locs = torch.from_numpy(rng.integers(0, 2, batch)
+                                .astype(np.int8)).to(dev)
         valid = torch.from_numpy(rng.random(batch) > 0.05).to(dev)
         want = tracker.access_batched(state, keys, locs, valid)
-        got = ops.clock_update(tracker.TrackerState(*[x.clone() for x in state]),
-                               keys, locs, valid)
+        got = ops.clock_update(
+            tracker.TrackerState(*[x.clone() for x in state]), keys, locs,
+            valid)
         torch.cuda.synchronize()
         for a, b in zip(want, got):
             worst = max(worst, int((a.to(torch.int64) - b.to(torch.int64))
@@ -252,15 +266,14 @@ def drive(db, stream, walls=None) -> None:
 
 # ------------------------------------------------------------ phase 3
 
-def engine_parity(batch: int, device="cuda") -> dict:
+def engine_parity(batch: int) -> dict:
     import numpy as np
-    import torch
     from repro_torch.configs.prismdb_kv import paper_tier_config
-    from repro_torch.core import engine
     from repro_torch.core.db import PrismDB
     cfg = paper_tier_config(scale=1)
     runs = {}
-    for backend in ("cuda", "reference"):
+    for backend, device in (("cuda", "cuda"), ("reference", "cuda"),
+                            ("reference", "cpu")):
         db = PrismDB(cfg, seed=0, backend=backend, device=device)
         rng = np.random.default_rng(11)
         zipf = Zipf(cfg.key_space)
@@ -282,13 +295,27 @@ def engine_parity(batch: int, device="cuda") -> dict:
                     results.append([db.scan_ops(keys, lens).cpu().numpy()])
         db.delete(pre[:batch])
         results.append([x.cpu().numpy() for x in db.get(pre[:batch])])
-        runs[backend] = (db, results)
-    (dk, rk), (dr, rr) = runs["cuda"], runs["reference"]
+        runs[backend, device] = (db, results)
+    dk, rk = runs["cuda", "cuda"]
     comp = dk.counters["compactions"]
     if comp == 0:
         raise AssertionError("parity run made no compaction")
+    out = {"phase": "parity", "scale": 1, "compactions": comp}
+    for (backend, device), (dr, rr) in runs.items():
+        if (backend, device) != ("cuda", "cuda"):
+            out[f"{backend}_{device}"] = _same_run(dk, rk, dr, rr)
+    out["ok"] = True
+    return out
+
+
+def _same_run(dk, rk, dr, rr) -> dict:
+    """Raise unless two runs of one stream agree: counters, every state
+    leaf bit for bit (``obs.ev_score`` to rtol 1e-5: the msc_score kernel
+    sums in another order) and every per-op result."""
+    import numpy as np
+    from repro_torch.core import engine
     if dk.counters != dr.counters:
-        raise AssertionError("counters differ between backends")
+        raise AssertionError("counters differ between the runs")
 
     def leaves(x, path=""):
         if isinstance(x, tuple) and hasattr(x, "_fields"):
@@ -317,34 +344,41 @@ def engine_parity(batch: int, device="cuda") -> dict:
         for a, b in zip(x, y):
             if not np.array_equal(a, b):
                 raise AssertionError("per-op results differ")
-    return {"phase": "parity", "scale": 1, "compactions": comp,
-            "leaves_equal": len(sk), "ev_score_max_rel_err": score_err,
-            "ok": True}
+    return {"leaves_equal": len(sk), "ev_score_max_rel_err": score_err}
 
 
 # ------------------------------------------------------------ phase 4
 
-def _orphans(db) -> int:
-    """Slow-tier rows whose run id has no directory entry (the run
-    directory was full when they were written): unreachable by gets."""
+def _orphan_keys(db):
+    """Keys in slow-tier rows whose run id has no directory entry (the
+    run directory was full when they were written): unreachable by gets."""
     st = db.estate.tier
-    return int(((st.runs[0] >= db.cfg.max_runs) & (st.keys[1] >= 0)).sum())
+    return st.keys[1][(st.runs[0] >= db.cfg.max_runs) & (st.keys[1] >= 0)]
 
 
-def _readback(db, keys, batch: int) -> int:
-    """Keys of ``keys`` not found with value == key."""
+def _check_readback(db, keys, batch: int, what: str) -> None:
+    """Raise unless every key of ``keys`` is found with value == key.  A
+    failure says how many of the lost keys sit in orphaned slow rows (the
+    reference's run-directory overflow, ROADMAP Queue 3) and how many do
+    not (a fault of the port)."""
     import torch
-    bad = 0
+    lost = []
     for i in range(0, keys.numel(), batch):
         k = keys[i:i + batch]
         vals, found, _ = db.get(k)
         ok = found & (vals == k[:, None].to(torch.float32)).all(dim=1)
-        bad += int((~ok).sum())
-    return bad
+        lost.append(k[~ok])
+    lost = torch.cat(lost)
+    if lost.numel():
+        orphaned = int(torch.isin(lost, _orphan_keys(db)).sum())
+        raise AssertionError(
+            f"read-back {what}: {lost.numel()} of {keys.numel()} keys not "
+            f"found with value == key; {orphaned} of them in slow rows no "
+            f"run-directory entry covers (reference fault), "
+            f"{lost.numel() - orphaned} elsewhere (port fault)")
 
 
-def main_path(scale: int, batch: int, seg: int, preload_frac: float,
-              device=None, preload_budget_s: float | None = None,
+def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
               profile_steps: int = 8) -> dict:
     import numpy as np
     import torch
@@ -364,18 +398,12 @@ def main_path(scale: int, batch: int, seg: int, preload_frac: float,
 
     kernels.reset_launches()
     engine.HOST_READS.n = 0
-    n_pre = int(cfg.key_space * preload_frac)
     pre = torch.from_numpy(rng.permutation(n_pre).astype(np.int32)).to(
         db.device)
     t0 = time.time()
     tick = max(n_pre // batch // 10, 1)
-    loaded = 0
     for j, i in enumerate(range(0, n_pre, batch)):
         db.put(pre[i:i + batch])
-        loaded = min(i + batch, n_pre)
-        if preload_budget_s is not None and \
-                time.time() - t0 > preload_budget_s:
-            break
         if j % tick == tick - 1:
             print(f"# preload {i + batch}/{n_pre} keys "
                   f"{time.time() - t0:.1f}s compactions "
@@ -386,8 +414,7 @@ def main_path(scale: int, batch: int, seg: int, preload_frac: float,
     out = {"phase": "main", "scale": scale, "key_space": cfg.key_space,
            "fast_slots": cfg.fast_slots, "tracker_slots": cfg.tracker_slots,
            "max_runs": cfg.max_runs, "batch": batch, "init_s": t_init,
-           "preload_keys": loaded, "preload_target_keys": n_pre,
-           "preload_s": t_pre,
+           "preload_keys": n_pre, "preload_s": t_pre,
            "preload_steps": db.dispatches,
            "preload_compactions": db.counters["compactions"],
            "preload_ms_per_step": 1e3 * t_pre / max(db.dispatches, 1),
@@ -398,14 +425,11 @@ def main_path(scale: int, batch: int, seg: int, preload_frac: float,
            "segments": {}}
 
     # read-back: a sample of preloaded keys holds value == key
-    n_chk = min(65536, loaded)
-    sample = pre[torch.randperm(loaded, device=db.device,
+    n_chk = min(65536, n_pre)
+    sample = pre[torch.randperm(n_pre, device=db.device,
                                 generator=torch.Generator(db.device)
                                 .manual_seed(5))[:n_chk]]
-    bad = _readback(db, sample, batch)
-    if bad:
-        raise AssertionError(f"read-back: {bad} of {n_chk} preloaded keys "
-                             "not found with value == key")
+    _check_readback(db, sample, batch, "after the preload")
     out["readback_keys"] = n_chk
 
     for mix in ("A", "C", "E"):
@@ -463,16 +487,16 @@ def main_path(scale: int, batch: int, seg: int, preload_frac: float,
     (OUT / f"profile_scale{scale}.txt").write_text(ka.table(
         sort_by="self_cuda_time_total", row_limit=60))
 
-    # deletes: deleted keys are gone; the rest of the sample is reported
+    # deletes: deleted keys are gone, the rest of the sample is intact
     gone = sample[:batch]
     db.delete(gone)
     _, found, _ = db.get(gone)
     if bool(found.any()):
         raise AssertionError("deleted keys still found")
+    _check_readback(db, sample[batch:], batch, "after the segments")
     out.update({
         "delete_ok": True,
-        "sample_lost_after_segments": _readback(db, sample[batch:], batch),
-        "orphaned_slow_rows": _orphans(db),
+        "orphaned_slow_rows": int(_orphan_keys(db).numel()),
         "runs_active": int(db.estate.tier.dir_active[0].sum()),
         "compactions": db.counters["compactions"],
         "steps": db.dispatches,
@@ -487,27 +511,6 @@ def main_path(scale: int, batch: int, seg: int, preload_frac: float,
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scale", type=int, default=FULL_SCALE // 128,
-                    help="paper_tier_config scale of the 50%%-preload main "
-                         "path (see PERF.md for why it is cut)")
-    ap.add_argument("--batch", type=int, default=4096)
-    ap.add_argument("--segment", type=int, default=64,
-                    help="client batches per YCSB segment")
-    ap.add_argument("--preload-frac", type=float, default=0.5)
-    ap.add_argument("--full-scale", type=int, default=FULL_SCALE,
-                    help="scale of the full-size main path (1536 = the "
-                         "paper's 100.7 M keys)")
-    ap.add_argument("--full-preload-frac", type=float, default=0.12,
-                    help="preload of the full-size run: past the fast "
-                         "tier's watermark, so compactions run")
-    ap.add_argument("--full-segment", type=int, default=16)
-    ap.add_argument("--full-preload-budget", type=float, default=240.0,
-                    help="wall seconds after which the full-size preload "
-                         "stops (keeps the smoke inside its time limit)")
-    ap.add_argument("--phases",
-                    default="device,kernels,parity,main,main_full")
-    args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
               file=sys.stderr)
@@ -520,10 +523,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch import kernels
     from repro_torch.configs.prismdb_kv import paper_tier_config
     from repro_torch.kernels import build
-    phases = set(args.phases.split(","))
     t_start = time.time()
     smi = smi_line()
     t0 = time.time()
@@ -536,31 +537,19 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.time() - t0, "built": sorted(report)})
 
-    rows = []
-    if "kernels" in phases:
-        rng = np.random.default_rng(0)
-        full = paper_tier_config(FULL_SCALE)
-        rows = [check_clock_update(full, args.batch, rng),
-                check_msc_score(full, rng)]
-        emit({"phase": "kernels", "rows": rows})
-    if "parity" in phases:
-        emit(engine_parity(args.batch))
-    launches = {k: 0 for k in kernels.LAUNCHES}
-    if "main" in phases:
-        res = main_path(args.scale, args.batch, args.segment,
-                        args.preload_frac)
-        launches = res["launches"]
-        emit(res)
-    if "main_full" in phases:
-        res = main_path(args.full_scale, args.batch, args.full_segment,
-                        args.full_preload_frac,
-                        preload_budget_s=args.full_preload_budget,
-                        profile_steps=2)
-        res["phase"] = "main_full"
-        launches = res["launches"]       # the kernels line reports this run
-        emit(res)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    rng = np.random.default_rng(0)
+    full = paper_tier_config(FULL_SCALE)
+    rows = [check_clock_update(full, BATCH, rng), check_msc_score(full, rng)]
+    emit({"phase": "kernels", "rows": rows})
+    emit(engine_parity(BATCH))
+    small = paper_tier_config(SCALE)
+    emit(main_path(SCALE, BATCH, SEGMENT, small.key_space // 2))
+    res = main_path(FULL_SCALE, BATCH, FULL_SEGMENT, FULL_PRELOAD_KEYS,
+                    profile_steps=FULL_PROFILE_STEPS)
+    res["phase"] = "main_full"
+    emit(res)
+    for r in rows:                  # the kernels line reports main_full
+        r["launches"] = res["launches"][r["name"]]
     emit({"phase": "done", "elapsed_s": time.time() - t_start})
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.backend import resolve_device
 from repro_torch.core.utils import M32, hash_u32, to_i32
 
 
@@ -15,7 +16,7 @@ def init(n_runs: int, bits_per_run: int, device=None) -> torch.Tensor:
     if bits_per_run % 32:
         raise ValueError("bits_per_run must be a multiple of 32")
     return torch.zeros((n_runs, bits_per_run // 32), dtype=torch.int32,
-                       device=device)
+                       device=resolve_device(device))
 
 
 def _positions(keys: torch.Tensor, n_bits: int, k_hashes: int

@@ -106,8 +106,10 @@ def check_supported(cfg: EngineConfig) -> None:
 
 
 def init(cfg: EngineConfig, rng: torch.Tensor, device=None) -> EngineState:
+    """A fresh engine state on ``device`` (None: the card; raises without
+    one).  ``rng`` is a host key from ``prng.PRNGKey``."""
     check_supported(cfg)
-    dev = rng.device if device is None else torch.device(device)
+    dev = backend_mod.resolve_device(device)
     return EngineState(
         tier=tiers.init(cfg.tier, dev), pol=policy.init(dev),
         rng=rng.cpu(),
@@ -118,13 +120,13 @@ def init(cfg: EngineConfig, rng: torch.Tensor, device=None) -> EngineState:
 
 def make_op(kind: int, keys, vals=None, valid=None, aux=None, *,
             value_width: int, device=None) -> OpBatch:
-    """Build an OpBatch with the facade defaults (value = broadcast key).
-    ``kind`` stays a host scalar: the engine branches on it without a
-    device read."""
+    """Build an OpBatch with the facade defaults (value = broadcast key)
+    on ``device`` (None: the card).  ``kind`` stays a host scalar: the
+    engine branches on it without a device read."""
+    dev = backend_mod.resolve_device(device)
     keys = torch.as_tensor(np.asarray(keys, np.int32) if not
                            torch.is_tensor(keys) else keys,
-                           device=device).to(torch.int32)
-    dev = keys.device
+                           device=dev).to(torch.int32)
     if vals is None:
         vals = keys[:, None].to(torch.float32).expand(
             keys.shape[0], value_width)

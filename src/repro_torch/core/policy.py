@@ -11,6 +11,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import tracker
+from repro_torch.core.backend import resolve_device
 from repro_torch.core.tiers import TierState
 
 DETECT, ACTIVE, COOLDOWN = 0, 1, 2
@@ -40,6 +41,7 @@ class PolicyState(NamedTuple):
 
 
 def init(device=None) -> PolicyState:
+    device = resolve_device(device)
     z = lambda: torch.zeros((), dtype=torch.int32, device=device)
     return PolicyState(phase=z(), ops_mark=z(), fast_hits_mark=z(),
                        gets_mark=z(), reads_mark=z(),

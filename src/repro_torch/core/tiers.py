@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bloom, tracker
+from repro_torch.core.backend import resolve_device
 from repro_torch.core.tracker import TrackerState
 from repro_torch.core.utils import (PADKEY, add_where, alloc_slots,
                                     build_sorted_index, dedupe_keep_last,
@@ -82,6 +83,7 @@ class Counters(NamedTuple):
 
     @staticmethod
     def zeros(n_tiers: int = 2, device=None) -> "Counters":
+        device = resolve_device(device)
         z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
         return Counters(
             gets=z(), puts=z(), hits=z(n_tiers), misses=z(),
@@ -120,6 +122,7 @@ class TierState(NamedTuple):
 
 
 def init(cfg: TierConfig, device=None, dtype=torch.float32) -> TierState:
+    device = resolve_device(device)
     sizes = cfg.tier_sizes
     r, v = cfg.max_runs, cfg.value_width
     full = lambda n, x: torch.full((n,), x, dtype=torch.int32, device=device)

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.backend import resolve_device
 from repro_torch.core.utils import count_into, hash_mod, set_where
 
 CLOCK_MAX = 3  # 2-bit clock
@@ -31,6 +32,7 @@ class TrackerState(NamedTuple):
 
 
 def init(capacity: int, device=None) -> TrackerState:
+    device = resolve_device(device)
     return TrackerState(
         keys=torch.full((capacity,), -1, dtype=torch.int32, device=device),
         clock=torch.zeros((capacity,), dtype=torch.int8, device=device),

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.backend import resolve_device
 from repro_torch.obs.cost import CostModel, compaction_io_us, step_io_us
 
 TICK = 4
@@ -28,7 +29,7 @@ EVENT_KIND_NAMES = ("commit", "start", "resume")
 def timeline_fields(n_tiers: int = 2) -> tuple:
     """Timeline row layout: [kind, n_ops, *flattened Counters deltas]."""
     from repro_torch.core.tiers import Counters
-    zeros = Counters.zeros(n_tiers)
+    zeros = Counters.zeros(n_tiers, "meta")   # shapes only
     out = ["kind", "n_ops"]
     for f in Counters._fields:
         leaf = getattr(zeros, f)
@@ -72,6 +73,7 @@ class ObsState(NamedTuple):
 
 
 def init(cfg: ObsConfig, device=None) -> ObsState:
+    device = resolve_device(device)
     e = cfg.event_len
     i = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
     f = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)

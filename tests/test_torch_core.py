@@ -161,7 +161,7 @@ def test_bloom(n_words):
 @pytest.mark.parametrize("cap,batch", [(1024, 256), (512, 128), (1021, 256),
                                        (331, 64), (409, 700)])
 def test_tracker_access_batched(cap, batch):
-    js, ts = jtracker.init(cap), tracker.init(cap)
+    js, ts = jtracker.init(cap), tracker.init(cap, "cpu")
     for _ in range(5):
         keys = RNG.integers(0, 4 * cap, batch).astype(np.int32)
         locs = RNG.integers(0, 2, batch).astype(np.int8)
@@ -274,6 +274,37 @@ def test_default_device_is_the_card():
         PrismDB(paper_tier_config(1))
 
 
+def _inits():
+    from repro_torch.configs.prismdb_kv import paper_tier_config
+    from repro_torch.core import bloom, engine, policy, prng, tiers, tracker
+    from repro_torch.obs import state as tobs_state
+    cfg = paper_tier_config(1)
+    return {
+        "engine.init": lambda: engine.init(engine.EngineConfig(tier=cfg),
+                                           prng.PRNGKey(0)),
+        "engine.make_op": lambda: engine.make_op(engine.PUT, np.arange(4),
+                                                 value_width=4),
+        "tiers.init": lambda: tiers.init(cfg),
+        "tiers.Counters.zeros": lambda: tiers.Counters.zeros(2),
+        "tracker.init": lambda: tracker.init(64),
+        "bloom.init": lambda: bloom.init(4, 64),
+        "policy.init": lambda: policy.init(),
+        "obs.state.init": lambda: tobs_state.init(tobs_state.ObsConfig()),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_inits()))
+def test_every_init_defaults_to_the_card(name):
+    """Every public constructor of state resolves ``device=None`` to the
+    card, as PrismDB does: without one it raises, it never builds on the
+    CPU unasked (a host key from ``prng.PRNGKey`` does not pick the
+    device either)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _inits()[name]()
+
+
 def test_unported_configs_raise():
     from repro_torch.core.db import PrismDB
     from repro_torch.core.tiers import TierConfig
@@ -288,6 +319,7 @@ def test_unported_configs_raise():
         PrismDB(cfg, backend="pallas", device="cpu")
     from repro_torch.core import engine
     db = PrismDB(cfg, device="cpu")
-    op = engine.make_op(engine.PUT, np.arange(4), value_width=1)
+    op = engine.make_op(engine.PUT, np.arange(4), value_width=1,
+                        device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.engine_step(db.estate, op, db.ecfg, mirror=lambda p, m: p)

@@ -41,7 +41,7 @@ def test_clock_update_plain_vs_jax(cap, batch, tile, jax_backend):
     from repro.core import tracker as jtracker
     from repro.kernels.clock_update.ops import tracker_access as j_access
     before = kernels.LAUNCHES["clock_update"]
-    js, ts = jtracker.init(cap), tracker.init(cap)
+    js, ts = jtracker.init(cap), tracker.init(cap, "cpu")
     for _ in range(4):
         keys = RNG.integers(0, 4 * cap, batch).astype(np.int32)
         locs = RNG.integers(0, 2, batch).astype(np.int8)
@@ -59,8 +59,9 @@ def _msc_inputs(nb=64, k=8, width=8192):
     """Candidates and bucket statistics as the engine keeps them: the
     tracked fast keys of a bucket (the clock histogram row) are a subset
     of its fast keys.  (Rows whose histogram exceeds the bucket's count
-    push the pinned fraction p to its 0.999 clip, where 1 / (1 - p)
-    magnifies any change in the order of the sums beyond rtol 1e-5.)"""
+    push the pinned fraction p towards its 0.999 clip, where 1 / (1 - p)
+    magnifies any change in the order of the sums: see
+    ``test_msc_score_kernel_near_pin_clip_on_card``.)"""
     lo = RNG.integers(0, width // 2, k).astype(np.int32)
     hi = (lo + RNG.integers(1, width // 4, k)).astype(np.int32)
     hist = RNG.integers(0, 30, (nb, 4)).astype(np.int32)
@@ -130,6 +131,63 @@ def test_msc_score_kernel_on_card(nb, k):
         assert int(torch.argmax(got)) == int(torch.argmax(want))
 
 
+def _msc_inputs_near_clip(rng, nb, k, width):
+    """Bucket counts just around the pinned mass ``hist @ probs``, so the
+    histogram rows exceed the bucket's fast count (a tracker entry whose
+    location is fast may be stale) and each candidate's pinned fraction
+    p lands within 1% of its 0.999 clip, on either side."""
+    lo = rng.integers(0, width // 2, k).astype(np.int32)
+    hi = (lo + rng.integers(1, width // 4, k)).astype(np.int32)
+    hist = rng.integers(0, 30, (nb, 4)).astype(np.int32)
+    probs = np.asarray([0.1, 0.4, 0.9, 1.0], np.float32)
+    fast = np.rint(hist @ probs.astype(np.float64)
+                   * rng.uniform(0.99, 1.012, nb)).astype(np.int32)
+    return [lo, hi, rng.integers(0, 500, k).astype(np.int32), fast,
+            rng.integers(0, 400, nb).astype(np.int32),
+            rng.integers(0, 50, nb).astype(np.int32), hist, probs], \
+        width // nb
+
+
+def _pinned_fraction(args, bw):
+    """Each candidate's pinned fraction p, in float64 (clipped as the
+    kernel clips it)."""
+    lo, hi, _, fast, _, _, hist, probs = [np.asarray(a, np.float64)
+                                          for a in args]
+    edges = np.arange(fast.shape[0], dtype=np.float64) * bw
+    w = np.clip((np.minimum(edges + bw, hi[:, None])
+                 - np.maximum(edges, lo[:, None])) / bw, 0.0, 1.0)
+    return np.clip((w @ (hist @ probs)) / np.maximum(w @ fast, 1.0),
+                   0.0, 0.999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,k", [(256, 8), (64, 32)])
+def test_msc_score_kernel_near_pin_clip_on_card(nb, k):
+    """Near p = 0.999 the cost's factor 1 / (1 - p) magnifies the
+    rounding of the sums behind p by p / (1 - p); the kernel sums in
+    another order than the plain version.  Bound: the rtol 1e-5 of the
+    other cases plus the worst-case rounding of the two nb-term float32
+    sums of p (2 * nb * 2**-24, relative) times p / (1 - p).  The chosen
+    candidate must be the same."""
+    _needs_card()
+    from repro_torch.kernels.msc_score.ops import msc_scores
+    from repro_torch.kernels.msc_score.ref import msc_scores_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(17)
+    near = 0
+    for _ in range(16):
+        args, bw = _msc_inputs_near_clip(rng, nb, k, width=nb * 391)
+        p = _pinned_fraction(args, bw)
+        near += int(((p > 0.99) & (p < 0.999)).sum())
+        cargs = [t(a).cuda() for a in args]
+        want = msc_scores_ref(*cargs, bucket_width=bw).cpu().numpy()
+        got = msc_scores(*cargs, bucket_width=bw).cpu().numpy()
+        rtol = 1e-5 + 2 * nb * 2.0**-24 * p / (1 - p)
+        assert (np.abs(got - want) <= rtol * np.abs(want)).all()
+        assert int(np.argmax(got)) == int(np.argmax(want))
+    assert near > 0          # the inputs reach the magnified regime
+
+
 def test_wrappers_refuse_cpu_tensors():
     """The kernel entry points validate before they build or launch: a
     CPU tensor is refused, never silently taken by the plain version."""
@@ -137,7 +195,8 @@ def test_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.msc_score.ops import msc_scores
     before = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError):
-        clock_update(tracker.init(16), torch.zeros(4, dtype=torch.int32),
+        clock_update(tracker.init(16, "cpu"),
+                     torch.zeros(4, dtype=torch.int32),
                      torch.zeros(4, dtype=torch.int8),
                      torch.ones(4, dtype=torch.bool))
     args, bw = _msc_inputs(16, 4)
