@@ -7,21 +7,36 @@ Phases, each printed as one JSON line:
   1. device   -- nvidia-smi name/power limit, build of every CUDA kernel
                  (one nvcc per source, all started together)
   2. kernels  -- each kernel against its plain PyTorch version on the card
-                 at the main path's shapes (clock_update bit-exact,
-                 msc_score rtol 1e-5 with equal argmax), with CUDA-event
-                 times and the card's bound for the same work
+                 at the main paths' shapes (clock_update and the three
+                 tier_compact movers bit-exact, msc_score rtol 1e-5 with
+                 equal argmax), with CUDA-event times, the plain version's
+                 and a library call's where one computes the same function,
+                 and the card's bound for the same work
   3. parity   -- the engine at paper_tier_config(scale=1) on one op
                  stream: backend "cuda" on the card vs "reference" on the
                  card and on the CPU; state, counters and per-op results
-                 bit-equal
+                 bit-equal; again at compaction_quantum DRAIN_Q, whose tier
+                 state and results must also equal run to completion's
   4. main     -- PrismDB(paper_tier_config(SCALE), backend="cuda") through
                  put/get/delete/scan_ops: preload 50% of the key space,
-                 YCSB-A, YCSB-C and a scan segment; then main_full, the
-                 same at the paper's full size (100.7 M keys) with a fixed
-                 preload of FULL_PRELOAD_KEYS; throughput, modeled
-                 p50/p99/p999, host reads per step, peak memory, kernel
-                 launches, device busy share; read-back of a sample of
-                 preloaded keys (value == key) and of deleted keys
+                 YCSB-A, YCSB-C and a scan segment; main_quantum, the same
+                 at compaction_quantum=DRAIN_Q, bit-equal to main in end
+                 state and per-op results; then main_full and
+                 main_full_quantum, the same at the paper's full size
+                 (100.7 M keys) with a fixed preload of FULL_PRELOAD_KEYS
+                 (end states compared by per-leaf checksums); throughput,
+                 modeled p50/p99/p999, host reads per step, peak memory,
+                 kernel launches, device busy share; read-back of a sample
+                 of preloaded keys (value == key) and of deleted keys
+  5. embed    -- the embedding row store at gemma3-1b's width through
+                 engine_init + prepare_step, backend "cuda", "cuda" with
+                 the plain movers, and "reference": every lookup equal to
+                 the initial table, the end states equal; steps/s,
+                 compactions, launches; embed_4096, the same at
+                 EMBED_DIAG_TOKENS a batch, where the "reference" leg may
+                 part from the "cuda" one only at a compaction whose
+                 candidates the msc_score kernel and the plain scorer rank
+                 differently on a near-tie
 Then the kernels line, the nvidia-smi line, and the final ok line.  The
 sizes are the module constants below; PERF.md ("Scale used") says why.
 
@@ -31,6 +46,7 @@ reports go to chiprun_out/.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -54,6 +70,20 @@ SEGMENT = 64                   # client batches per YCSB segment at SCALE
 FULL_PRELOAD_KEYS = 2688 * BATCH          # 11,010,048 keys
 FULL_SEGMENT = 16
 FULL_PROFILE_STEPS = 2         # profiler bookkeeping grows per traced op
+DRAIN_Q = 64                   # compaction_quantum of the quantized phases
+# The embedding store at gemma3-1b's published width (vocab and d_model of
+# src/repro/configs/gemma3_1b.py) with the store's default fast_rows:
+# a 1.21 GB slow row pool and a 37.7 MB fast one.  Batches of
+# EMBED_TOKENS = fast_rows / 4 tokens: at fast_rows / 2 the pinned hot
+# rows keep free slots below the batch, and from the 24th batch on the
+# rate limiter runs max_rounds (256) compactions every step (PERF.md).
+EMBED_VOCAB, EMBED_DIM, EMBED_FAST_ROWS = 262_144, 1_152, 8_192
+EMBED_TOKENS, EMBED_STEPS = 2048, 32
+# The same store at fast_rows / 2 tokens a batch, with the msc_score
+# kernel's choices held against the plain scorer's at every compaction:
+# long enough to pass the rate limiter's thrash regime (batch 24 on) and
+# the first tie the two scorers break apart (batch 38; PERF.md).
+EMBED_DIAG_TOKENS, EMBED_DIAG_STEPS = 4096, 39
 
 
 def emit(obj: dict) -> None:
@@ -204,6 +234,132 @@ def check_msc_score(cfg, rng) -> dict:
             "library_ms": None, "shape": {"K": k, "B": nb}}
 
 
+def _bits(x):
+    import torch
+    return x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[x.element_size()])
+
+
+def _max_abs_err(a, b) -> float:
+    """0.0 when ``a`` and ``b`` hold the same bits, else their largest
+    absolute difference (inf if the bits differ where the values agree)."""
+    import torch
+    if torch.equal(_bits(a), _bits(b)):
+        return 0.0
+    d = float((a.float() - b.float()).abs().max())
+    return d if d > 0 else float("inf")
+
+
+def check_tier_compact(full, embed, rng) -> list:
+    """B3/B4/B5 against their plain versions on the card, bit for bit, at
+    this slice's shapes: the key-value drain (q = DRAIN_Q rows of the
+    full-size pools' 4 float32) for B3/B4, and an ``inflight_cap``-sized
+    Movement of the embedding store (merged rows of ``dim`` float32 from
+    and into its pools; promotions from the slow pool) for all three.
+    Each row's numbers are the mirror's shapes; ``kv_drain`` has B3/B4 at
+    the drain's.  Bound: the bytes each launch must move (rows read and
+    written once, indices and flags read once) at HBM_BYTES_PER_S."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compaction
+    from repro_torch.kernels.tier_compact import ops, ref
+    dev = torch.device("cuda")
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    flag = lambda a: torch.from_numpy(np.asarray(a, bool)).to(dev)
+    bound = lambda nbytes: 1e3 * nbytes / HBM_BYTES_PER_S
+
+    def pools(nf, ns, w):
+        gen = torch.Generator(dev).manual_seed(int(rng.integers(1 << 30)))
+        return (torch.randn((nf, w), device=dev, generator=gen),
+                torch.randn((ns, w), device=dev, generator=gen))
+
+    def measure(fast, slow, m, n_pro):
+        """Inputs, checks and times at one shape; returns per-kernel
+        (max_abs_err, ms, plain_ms, bound_ms, library_ms)."""
+        nf, ns, w = fast.shape[0], slow.shape[0], fast.shape[1]
+        rb = w * fast.element_size()
+        src_slow = rng.random(m) < 0.5
+        idx = np.where(src_slow, rng.integers(0, ns, m),
+                       rng.integers(0, nf, m))
+        sl_t, idx_t = flag(src_slow), i32(idx)
+        dst_t = i32(rng.choice(ns, m, replace=False))
+        valid = rng.random(m) > 0.1
+        v_t = flag(valid)
+        rows = torch.randn((m, w), device=dev)
+        out = {}
+        # B3
+        err = _max_abs_err(ops.select_gather_rows(fast, slow, sl_t, idx_t),
+                           ref.select_gather_rows_ref(fast, slow, sl_t,
+                                                      idx_t))
+        out["select_gather_rows"] = (
+            err, cuda_ms(lambda: ops.select_gather_rows(fast, slow, sl_t,
+                                                        idx_t), 50),
+            cuda_ms(lambda: ref.select_gather_rows_ref(fast, slow, sl_t,
+                                                       idx_t), 20),
+            bound(m * (2 * rb + 5)), None)
+        # B4: into a copy of the slow pool; the library call is
+        # index_copy_ of the valid rows (masked before timing)
+        tgt = slow.clone()
+        want = ref.scatter_rows_ref(slow.clone(), dst_t, rows, v_t)
+        err = _max_abs_err(ops.scatter_rows(tgt, dst_t, rows, v_t), want)
+        del want
+        keep = torch.nonzero(v_t).squeeze(1)
+        d_v, r_v = dst_t[keep].long(), rows[keep]
+        nv = int(valid.sum())
+        out["scatter_rows"] = (
+            err, cuda_ms(lambda: ops.scatter_rows(tgt, dst_t, rows, v_t), 50),
+            cuda_ms(lambda: ref.scatter_rows_ref(tgt, dst_t, rows, v_t), 20),
+            bound(nv * (2 * rb + 4) + m),
+            cuda_ms(lambda: tgt.index_copy_(0, d_v, r_v), 50))
+        del tgt
+        # B5: the promotion gather from the slow pool
+        p_idx = i32(rng.integers(0, ns, n_pro))
+        err = _max_abs_err(ops.gather_rows(slow, p_idx),
+                           ref.gather_rows_ref(slow, p_idx))
+        p_long = p_idx.long()
+        out["gather_rows"] = (
+            err, cuda_ms(lambda: ops.gather_rows(slow, p_idx), 50),
+            cuda_ms(lambda: ref.gather_rows_ref(slow, p_idx), 20),
+            bound(n_pro * (2 * rb + 4)),
+            cuda_ms(lambda: torch.index_select(slow, 0, p_long), 50))
+        torch.cuda.synchronize()
+        return out
+
+    etier = embed.tier()
+    capm = compaction.inflight_cap(etier)
+    cap_s = 2 * etier.run_size * max(etier.range_fanout_i, 1)
+    fast, slow = pools(etier.fast_slots, etier.slow_slots, embed.dim)
+    mirror = measure(fast, slow, capm, cap_s)
+    del fast, slow
+    fast, slow = pools(full.fast_slots, full.slow_slots, full.value_width)
+    drain = measure(fast, slow, DRAIN_Q, DRAIN_Q)
+    del fast, slow
+    torch.cuda.empty_cache()
+    rows = []
+    for name, line in (("select_gather_rows", 74), ("scatter_rows", 106),
+                       ("gather_rows", 38)):
+        err, ms, plain_ms, bound_ms, lib_ms = mirror[name]
+        if err != 0.0 or (name != "gather_rows" and drain[name][0] != 0.0):
+            raise AssertionError(f"{name} differs from its plain version")
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/csrc/tier_compact.cu",
+               "replaces": "src/repro/kernels/tier_compact/"
+                           f"tier_compact.py:{line}",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": "bytes",
+               "library_ms": lib_ms,
+               "shape": {"M": capm if name != "gather_rows" else cap_s,
+                         "W": embed.dim, "fast_rows": etier.fast_slots,
+                         "slow_rows": etier.slow_slots}}
+        if name != "gather_rows":
+            _, dms, dplain, dbound, dlib = drain[name]
+            row["kv_drain"] = {"M": DRAIN_Q, "W": full.value_width,
+                               "ms": dms, "plain_ms": dplain,
+                               "bound_ms": dbound, "library_ms": dlib}
+        rows.append(row)
+    return rows
+
+
 # ------------------------------------------------------------ streams
 
 class Zipf:
@@ -246,27 +402,37 @@ def make_stream(rng, zipf, batch: int, n: int, mix: str, device):
     return kinds, keys.to(device), lens.to(device)
 
 
-def drive(db, stream, walls=None) -> None:
+def drive(db, stream, walls=None, record=None) -> None:
     """Run a stream through the facade; with ``walls``, synchronise after
-    each step and record its wall time."""
+    each step and record its wall time; with ``record``, keep every
+    per-op result (the device tensors: no copy, no host read)."""
     import torch
     kinds, keys, lens = stream
     for i, kind in enumerate(kinds):
         t0 = time.perf_counter()
         if kind == "put":
             db.put(keys[i])
+            res = ()
         elif kind in ("get", "C"):
-            db.get(keys[i])
+            res = db.get(keys[i])
         else:
-            db.scan_ops(keys[i], lens[i])
+            res = (db.scan_ops(keys[i], lens[i]),)
         if walls is not None:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        if record is not None:
+            record.append(res)
 
 
 # ------------------------------------------------------------ phase 3
 
-def engine_parity(batch: int) -> dict:
+def engine_parity(batch: int, quantum: int = 0, base=None) -> dict:
+    """One op stream at scale 1 through backend "cuda" on the card and
+    "reference" on the card and on the CPU, at ``quantum``: every state
+    leaf, counter and per-op result must agree.  With ``base`` (the
+    quantum-0 runs), the tier state and results must also equal those of
+    run to completion (the any-quantum contract).  Returns the line and
+    the runs."""
     import numpy as np
     from repro_torch.configs.prismdb_kv import paper_tier_config
     from repro_torch.core.db import PrismDB
@@ -274,7 +440,8 @@ def engine_parity(batch: int) -> dict:
     runs = {}
     for backend, device in (("cuda", "cuda"), ("reference", "cuda"),
                             ("reference", "cpu")):
-        db = PrismDB(cfg, seed=0, backend=backend, device=device)
+        db = PrismDB(cfg, seed=0, backend=backend, device=device,
+                     compaction_quantum=quantum)
         rng = np.random.default_rng(11)
         zipf = Zipf(cfg.key_space)
         pre = rng.permutation(cfg.key_space // 2).astype(np.int32)
@@ -300,43 +467,99 @@ def engine_parity(batch: int) -> dict:
     comp = dk.counters["compactions"]
     if comp == 0:
         raise AssertionError("parity run made no compaction")
-    out = {"phase": "parity", "scale": 1, "compactions": comp}
+    out = {"phase": "parity", "scale": 1, "quantum": quantum,
+           "compactions": comp}
     for (backend, device), (dr, rr) in runs.items():
         if (backend, device) != ("cuda", "cuda"):
             out[f"{backend}_{device}"] = _same_run(dk, rk, dr, rr)
+    if base is not None:
+        d0, r0 = base["cuda", "cuda"]
+        out["tier_leaves_equal_quantum_0"] = _same_tier(d0, dk)
+        for x, y in zip(r0, rk):
+            for a, b in zip(x, y):
+                if not np.array_equal(a, b):
+                    raise AssertionError("per-op results differ from "
+                                         "quantum 0's")
     out["ok"] = True
+    return out, runs
+
+
+def _leaves(x, path=""):
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        for f in x._fields:
+            yield from _leaves(getattr(x, f), f"{path}.{f}")
+    elif isinstance(x, tuple):
+        for i, v in enumerate(x):
+            yield from _leaves(v, f"{path}[{i}]")
+    elif x is not None:
+        yield path, x
+
+
+def _same_tier(da, db) -> int:
+    """Raise unless two facades hold bit-equal tier states; returns the
+    number of leaves compared."""
+    import torch
+    a = dict(_leaves(da.estate.tier))
+    b = dict(_leaves(db.estate.tier))
+    for name, x in a.items():
+        if not torch.equal(_bits(x).cpu(), _bits(b[name]).cpu()):
+            raise AssertionError(f"tier leaf {name} differs")
+    return len(a)
+
+
+def _same_results(ra, rb) -> int:
+    """Raise unless two runs' recorded per-op results are bit-equal;
+    returns the number of steps compared."""
+    import torch
+    if len(ra) != len(rb):
+        raise AssertionError("the runs recorded different step counts")
+    for x, y in zip(ra, rb):
+        for a, b in zip(x, y):
+            if not torch.equal(_bits(a), _bits(b)):
+                raise AssertionError("per-op results differ")
+    return len(ra)
+
+
+def _digest(tier) -> dict:
+    """Per-leaf checksums of a tier state on the card: the sum of the
+    leaf's 32-bit words (bytes for 1-byte leaves) and their sum weighted
+    by position (int64, wrapping).  Compares full-size states without
+    holding two of them."""
+    import torch
+    out = {}
+    for name, x in _leaves(tier):
+        flat = _bits(x.reshape(-1))
+        s = torch.zeros(2, dtype=torch.int64, device=x.device)
+        for a in range(0, flat.numel(), 1 << 26):
+            w = flat[a:a + (1 << 26)].to(torch.int64)
+            pos = torch.arange(a, a + w.numel(), device=w.device) \
+                % 65521 + 1
+            s += torch.stack([w.sum(), (w * pos).sum()])
+        out[name] = tuple(s.tolist())
     return out
 
 
 def _same_run(dk, rk, dr, rr) -> dict:
     """Raise unless two runs of one stream agree: counters, every state
-    leaf bit for bit (``obs.ev_score`` to rtol 1e-5: the msc_score kernel
-    sums in another order) and every per-op result."""
+    leaf bit for bit (the MSC scores ``obs.ev_score`` and, in flight,
+    ``comp.score`` to rtol 1e-5: the msc_score kernel sums in another
+    order) and every per-op result."""
     import numpy as np
     from repro_torch.core import engine
     if dk.counters != dr.counters:
         raise AssertionError("counters differ between the runs")
 
-    def leaves(x, path=""):
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            for f in x._fields:
-                yield from leaves(getattr(x, f), f"{path}.{f}")
-        elif isinstance(x, tuple):
-            for i, v in enumerate(x):
-                yield from leaves(v, f"{path}[{i}]")
-        else:
-            yield path, x
-
-    sk = dict(leaves(engine.state_to_numpy(dk.estate)))
-    sr = dict(leaves(engine.state_to_numpy(dr.estate)))
+    sk = dict(_leaves(engine.state_to_numpy(dk.estate)))
+    sr = dict(_leaves(engine.state_to_numpy(dr.estate)))
     score_err = 0.0
     for name, a in sk.items():
         b = sr[name]
-        if name == ".obs.ev_score":
-            score_err = float(np.max(np.abs(a - b) / np.maximum(
-                np.abs(b), 1e-30)))
-            if score_err > 1e-5:
-                raise AssertionError(f"ev_score rel err {score_err}")
+        if name in (".obs.ev_score", ".comp.score"):
+            err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b),
+                                                           1e-30)))
+            if err > 1e-5:
+                raise AssertionError(f"{name} rel err {err}")
+            score_err = max(score_err, err)
         elif not np.array_equal(np.atleast_1d(a).view(np.uint8),
                                 np.atleast_1d(b).view(np.uint8)):
             raise AssertionError(f"state leaf {name} differs")
@@ -344,7 +567,7 @@ def _same_run(dk, rk, dr, rr) -> dict:
         for a, b in zip(x, y):
             if not np.array_equal(a, b):
                 raise AssertionError("per-op results differ")
-    return {"leaves_equal": len(sk), "ev_score_max_rel_err": score_err}
+    return {"leaves_equal": len(sk), "score_max_rel_err": score_err}
 
 
 # ------------------------------------------------------------ phase 4
@@ -378,8 +601,39 @@ def _check_readback(db, keys, batch: int, what: str) -> None:
             f"{lost.numel() - orphaned} elsewhere (port fault)")
 
 
+@contextlib.contextmanager
+def _spans():
+    """Wrap the quantized path's host functions in profiler ranges named
+    after them, for the length of a traced window; yields the names.
+    ``drain_tick`` holds ``drain_quantum`` and ``record_drain``."""
+    from torch.profiler import record_function
+    from repro_torch.core import compaction, engine
+    from repro_torch.obs import state as obs_state
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (engine, "drain_tick"), (compaction, "drain_quantum"),
+        (obs_state, "record_drain"), (compaction, "inflight_read"),
+        (compaction, "defer_adjust"))]
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    for m, n, fn in saved:
+        setattr(m, n, wrap(n, fn))
+    try:
+        yield [n for _, n, _ in saved]
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
 def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
-              profile_steps: int = 8) -> dict:
+              profile_steps: int = 8, quantum: int = 0, record=None):
+    """The recipe through ``PrismDB(..., compaction_quantum=quantum)``;
+    returns the phase line and the facade.  ``record`` (a list) receives
+    every per-op result of the segments and the profiled window."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -392,7 +646,8 @@ def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
     rng = np.random.default_rng(1)
     t0 = time.time()
     zipf = Zipf(cfg.key_space)
-    db = PrismDB(cfg, seed=0, backend="cuda", device=device)  # None: card
+    db = PrismDB(cfg, seed=0, backend="cuda", device=device,  # None: card
+                 compaction_quantum=quantum)
     torch.cuda.synchronize()
     t_init = time.time() - t0
 
@@ -411,7 +666,8 @@ def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
                   flush=True)
     torch.cuda.synchronize()
     t_pre = time.time() - t0
-    out = {"phase": "main", "scale": scale, "key_space": cfg.key_space,
+    out = {"phase": "main", "scale": scale, "quantum": quantum,
+           "key_space": cfg.key_space,
            "fast_slots": cfg.fast_slots, "tracker_slots": cfg.tracker_slots,
            "max_runs": cfg.max_runs, "batch": batch, "init_s": t_init,
            "preload_keys": n_pre, "preload_s": t_pre,
@@ -439,7 +695,7 @@ def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
         walls: list = []
         torch.cuda.synchronize()
         t0 = time.time()
-        drive(db, stream, walls)
+        drive(db, stream, walls, record)
         dt = time.time() - t0
         snap, c1 = db.obs_snapshot(), db.counters
         q = export.quantiles_from_hist(
@@ -465,26 +721,39 @@ def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
     stream = make_stream(rng, zipf, batch, profile_steps, "A", db.device)
     torch.cuda.synchronize()
     h0 = engine.HOST_READS.n
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _spans() as names, profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        drive(db, stream)
+        drive(db, stream, record=record)
         torch.cuda.synchronize()
         window = time.time() - t0
     ka = prof.key_averages()
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
     busy_us = sum(dev_us(e) for e in ka if not e.key.startswith("aten::")
-                  and not e.key.startswith("cuda"))
+                  and not e.key.startswith("cuda")
+                  and e.key not in names)
+    # a range shows twice, as its host range (the time kept here) and as
+    # its span on the device's timeline (no host time)
+    span_us = {n: sum(e.cpu_time_total for e in ka if e.key == n)
+               for n in names}
+    span_calls = {n: max([e.count for e in ka if e.key == n], default=0)
+                  for n in names}
     out["profile"] = {
         "window_s": window, "steps": profile_steps,
         "device_busy_share": busy_us / 1e6 / window,
         "host_reads": engine.HOST_READS.n - h0,
         "dtoh_copies": sum(e.count for e in ka if "DtoH" in e.key),
+        # host time inside each quantized-path function (the profiler's
+        # own per-op cost included), per traced step
+        "span_host_ms_per_step": {
+            n: span_us[n] / 1e3 / profile_steps for n in names},
+        "span_calls": span_calls,
         "top": [(e.key[:60], dev_us(e)) for e in sorted(
-            ka, key=dev_us, reverse=True)[:8]]}
+            (e for e in ka if e.key not in names), key=dev_us,
+            reverse=True)[:8]]}
     OUT.mkdir(exist_ok=True)
-    (OUT / f"profile_scale{scale}.txt").write_text(ka.table(
+    (OUT / f"profile_scale{scale}_q{quantum}.txt").write_text(ka.table(
         sort_by="self_cuda_time_total", row_limit=60))
 
     # deletes: deleted keys are gone, the rest of the sample is intact
@@ -503,10 +772,218 @@ def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
         "host_reads_per_step": engine.HOST_READS.n / db.dispatches,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": dict(kernels.LAUNCHES)})
-    for name, n in kernels.LAUNCHES.items():
-        if n <= 0:
+    path = ["clock_update", "msc_score"] + (
+        ["select_gather_rows", "scatter_rows"] if quantum else [])
+    for name in path:
+        if kernels.LAUNCHES[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
+    return out, db
+
+
+# ------------------------------------------------------------ phase 5
+
+def _prepare_plain_movers(est, cfg, ecfg, toks):
+    """``embedding_store.prepare_step`` with the mirror on the plain
+    movers; the engine, and so the msc_score kernel, on ``ecfg.backend``."""
+    from repro_torch.core import embedding_store as es
+    from repro_torch.core import engine
+    mirror = es.movement_mirror(cfg, backend="reference")
+    est = engine.maintain(est, ecfg, need=toks.shape[0], mirror=mirror)
+    state, slots = es.prepare_batch(est.payload._replace(tier=est.tier), cfg,
+                                    toks)
+    return est._replace(tier=state.tier,
+                        payload=state._replace(tier=None)), slots
+
+
+NEAR_TIE = 2e-5   # two msc_score results, each within its rtol of 1e-5
+
+
+@contextlib.contextmanager
+def _score_log(log: list):
+    """While open, every ``msc.select_range`` on a kernel backend also
+    scores the same candidates with the plain scorer (backend
+    "reference"); ``log`` gets (kernel scores, plain scores) per
+    compaction, as device tensors (no host read)."""
+    from repro_torch.core import msc
+    orig = msc.select_range
+
+    def select_range(state, cfg, key, **kw):
+        cand, scores, best = orig(state, cfg, key, **kw)
+        if kw.get("backend", "reference") != "reference":
+            _, plain, _ = orig(state, cfg, key, **dict(kw,
+                                                        backend="reference"))
+            log.append((scores.clone(), plain))
+        return cand, scores, best
+
+    msc.select_range = select_range
+    try:
+        yield log
+    finally:
+        msc.select_range = orig
+
+
+def _explain_divergence(log, per_step, digests) -> dict:
+    """Where the "reference" leg parts from the "cuda" one: the first step
+    whose tier checksums differ, and the first compaction of the "cuda"
+    leg at which the msc_score kernel's argmax differs from the plain
+    scorer's on the same state, with both scorers' candidate scores.
+    ``explained`` holds when that compaction falls in that step and the
+    plain scorer's two picks lie within ``NEAR_TIE`` of each other."""
+    import torch
+    first_step = next((i for i, (a, b) in enumerate(
+        zip(digests["cuda"], digests["reference"])) if a != b), None)
+    out = {"first_step_tier_differs": first_step, "compactions_scored":
+           len(log)}
+    if not log:
+        return dict(out, explained=first_step is None)
+    ks = torch.stack([k for k, _ in log]).cpu()
+    ps = torch.stack([p for _, p in log]).cpu()
+    kb, pb = ks.argmax(1), ps.argmax(1)
+    rel = ((ks - ps).abs() / ps.abs().clamp(min=1e-30)).max()
+    flips = (kb != pb).nonzero().flatten().tolist()
+    out.update({"score_max_rel_err": float(rel), "argmax_flips": len(flips)})
+    if not flips:
+        return dict(out, explained=first_step is None)
+    c = flips[0]
+    # per_step[i]: the leg's compaction count after step i
+    step = next(i for i, n in enumerate(per_step) if n > c)
+    top, pick = float(ps[c, pb[c]]), float(ps[c, kb[c]])
+    gap = (top - pick) / max(abs(top), 1e-30)
+    out["first_flip"] = {
+        "compaction": c, "step": step,
+        "kernel_scores": ks[c].tolist(), "plain_scores": ps[c].tolist(),
+        "kernel_argmax": int(kb[c]), "plain_argmax": int(pb[c]),
+        "plain_rel_gap": gap}
+    out["explained"] = first_step is not None and step == first_step \
+        and gap <= NEAR_TIE
+    return out
+
+
+def embed_phase(steps: int = EMBED_STEPS, tokens: int = EMBED_TOKENS,
+                vocab: int = EMBED_VOCAB, dim: int = EMBED_DIM,
+                fast_rows: int = EMBED_FAST_ROWS, device=None,
+                diagnose: bool = False) -> dict:
+    """The embedding row store through ``engine_init`` + ``prepare_step``
+    on zipf(0.99) token batches, in three legs on the card: backend
+    "cuda"; backend "cuda" with the mirror on the plain movers (the same
+    msc_score kernel, so the legs differ in B3/B4/B5 alone and must agree
+    in every leaf); backend "reference" (every leaf, ``obs.ev_score`` to
+    rtol 1e-5: the msc_score kernel sums in another order).  Every step's
+    lookup must return each token's initial row exactly (the dense-table
+    check: rows only move).  With ``diagnose`` the "cuda" leg also scores
+    every compaction's candidates with the plain scorer, every leg
+    checksums its tier after every step, the plain-movers leg must match
+    the "cuda" leg at every step, and the "reference" leg may part from it
+    only as ``_explain_divergence`` accounts for."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import embedding_store as es
+    from repro_torch.core import engine, prng
+    cfg = es.EmbedStoreConfig(vocab=vocab, dim=dim, fast_rows=fast_rows)
+    dev = torch.device(device or "cuda")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(Zipf(vocab).keys(rng, steps * tokens).reshape(
+        steps, tokens)).to(dev)
+    out = {"phase": "embed_4096" if diagnose else "embed", "vocab": vocab,
+           "dim": dim, "fast_rows": fast_rows, "tokens": tokens,
+           "steps": steps, "slow_pool_gb": vocab * dim * 4 / 1e9,
+           "fast_pool_mb": fast_rows * dim * 4 / 1e6}
+    legs = (("cuda", "cuda", es.prepare_step),
+            ("cuda_plain_movers", "cuda", _prepare_plain_movers),
+            ("reference", "reference", es.prepare_step))
+    ends, per_step, digests, log = {}, {}, {}, []
+    for leg, backend, prepare in legs:
+        ecfg = es.engine_config(cfg, backend=backend)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        est = es.engine_init(cfg, prng.PRNGKey(0), ecfg, device=dev)
+        dense = est.payload.rows_slow.clone()
+        torch.cuda.synchronize()
+        t_init = time.time() - t0
+        kernels.reset_launches()
+        engine.HOST_READS.n = 0
+        walls, comps, digs = [], [], []
+        scoring = _score_log(log) if diagnose and leg == "cuda" else \
+            contextlib.nullcontext()
+        with scoring:
+            for i in range(steps):
+                t0 = time.perf_counter()
+                est, _ = prepare(est, cfg, ecfg, toks[i])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                emb = es.lookup(est.payload._replace(tier=est.tier),
+                                toks[i])
+                if not torch.equal(_bits(emb), _bits(dense[toks[i].long()])):
+                    raise AssertionError(f"{out['phase']} ({leg}): step "
+                                         f"{i}: a lookup differs from the "
+                                         "initial table")
+                comps.append(int(est.tier.ctr.compactions))
+                if diagnose:
+                    digs.append(_digest(est.tier))
+        del dense
+        c = est.tier.ctr
+        w = np.asarray(walls) * 1e3
+        out[leg] = {
+            "init_s": t_init, "steps_per_s": steps / (w.sum() / 1e3),
+            "tokens_per_s": steps * tokens / (w.sum() / 1e3),
+            "step_ms_p50": float(np.percentile(w, 50)),
+            "step_ms_p90": float(np.percentile(w, 90)),
+            "step_ms_max": float(w.max()),
+            "compactions": int(c.compactions), "demoted": int(c.demoted),
+            "promoted": int(c.promoted),
+            "compactions_per_step": np.diff([0] + comps).tolist()
+            if diagnose else None,
+            "host_reads_per_step": engine.HOST_READS.n / steps,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30,
+            "launches": dict(kernels.LAUNCHES)}
+        ends[leg], per_step[leg], digests[leg] = est, comps, digs
+        print(f"# {out['phase']} {leg}: {w.sum() / 1e3:.1f}s, "
+              f"{int(c.compactions)} compactions", file=sys.stderr,
+              flush=True)
+    fails = []
+    if out["cuda"]["compactions"] == 0:
+        fails.append("no compaction ran")
+    for name in ("msc_score", "select_gather_rows", "scatter_rows",
+                 "gather_rows"):
+        if out["cuda"]["launches"][name] <= 0:
+            fails.append(f"kernel {name} never launched")
+    for leg, tol in (("cuda_plain_movers", 0.0), ("reference", 1e-5)):
+        other = dict(_leaves(ends[leg]))
+        diff, score_err = [], 0.0
+        for name, x in _leaves(ends["cuda"]):
+            y = other[name]
+            if name == ".obs.ev_score" and tol:
+                score_err = float(((x - y).abs() / y.abs().clamp(
+                    min=1e-30)).max())
+                if score_err > tol:
+                    diff.append(name)
+            elif not torch.equal(_bits(x), _bits(y)):
+                diff.append(name)
+        first = next((i for i, (a, b) in enumerate(
+            zip(per_step["cuda"], per_step[leg])) if a != b), None)
+        out[leg].update({"leaves_equal": len(other) - len(diff),
+                         "leaves_differ": diff,
+                         "score_max_rel_err": score_err,
+                         "first_step_compactions_differ": first})
+        if diagnose and digests[leg] != digests["cuda"]:
+            diff = diff or ["per-step tier checksums"]
+        if diff and not (diagnose and leg == "reference"):
+            fails.append(f"{leg}: leaves {diff[:4]} differ from the cuda "
+                         "leg")
+    if diagnose:
+        why = _explain_divergence(log, per_step["cuda"], digests)
+        out["reference"]["divergence"] = why
+        if not why["explained"]:
+            fails.append("reference: parts from the cuda leg where no "
+                         "msc_score near-tie accounts for it")
+    out["dense_table_ok"] = True
+    out["ok"] = not fails
+    if fails:
+        emit(out)
+        raise AssertionError(f"{out['phase']}: " + "; ".join(fails))
     return out
 
 
@@ -537,19 +1014,68 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.time() - t0, "built": sorted(report)})
 
+    from repro_torch.core.embedding_store import EmbedStoreConfig
     rng = np.random.default_rng(0)
     full = paper_tier_config(FULL_SCALE)
+    embed_cfg = EmbedStoreConfig(vocab=EMBED_VOCAB, dim=EMBED_DIM,
+                                 fast_rows=EMBED_FAST_ROWS)
     rows = [check_clock_update(full, BATCH, rng), check_msc_score(full, rng)]
+    rows += check_tier_compact(full, embed_cfg, rng)
     emit({"phase": "kernels", "rows": rows})
-    emit(engine_parity(BATCH))
+    line, base = engine_parity(BATCH)
+    emit(line)
+    line, _ = engine_parity(BATCH, quantum=DRAIN_Q, base=base)
+    del base
+    emit(line)
+
+    # main at SCALE, then the same recipe at quantum DRAIN_Q: the end
+    # tier state and every per-op result must be bit-equal
     small = paper_tier_config(SCALE)
-    emit(main_path(SCALE, BATCH, SEGMENT, small.key_space // 2))
-    res = main_path(FULL_SCALE, BATCH, FULL_SEGMENT, FULL_PRELOAD_KEYS,
-                    profile_steps=FULL_PROFILE_STEPS)
-    res["phase"] = "main_full"
+    rec0, recq = [], []
+    res, db0 = main_path(SCALE, BATCH, SEGMENT, small.key_space // 2,
+                         record=rec0)
     emit(res)
-    for r in rows:                  # the kernels line reports main_full
-        r["launches"] = res["launches"][r["name"]]
+    res, dbq = main_path(SCALE, BATCH, SEGMENT, small.key_space // 2,
+                         quantum=DRAIN_Q, record=recq)
+    res["phase"] = "main_quantum"
+    res["tier_leaves_equal_main"] = _same_tier(db0, dbq)
+    res["results_equal_main"] = _same_results(rec0, recq)
+    del db0, dbq, rec0, recq
+    emit(res)
+
+    # the full-size state, run to completion and at quantum DRAIN_Q; the
+    # two 9 GiB states are compared through per-leaf checksums
+    rec0, recq = [], []
+    full_res, db = main_path(FULL_SCALE, BATCH, FULL_SEGMENT,
+                             FULL_PRELOAD_KEYS,
+                             profile_steps=FULL_PROFILE_STEPS, record=rec0)
+    full_res["phase"] = "main_full"
+    digest = _digest(db.estate.tier)
+    del db
+    emit(full_res)
+    fq_res, db = main_path(FULL_SCALE, BATCH, FULL_SEGMENT,
+                           FULL_PRELOAD_KEYS,
+                           profile_steps=FULL_PROFILE_STEPS,
+                           quantum=DRAIN_Q, record=recq)
+    fq_res["phase"] = "main_full_quantum"
+    if _digest(db.estate.tier) != digest:
+        raise AssertionError("main_full_quantum: the end tier state differs "
+                             "from main_full's (per-leaf checksums)")
+    fq_res["tier_leaf_checksums_equal_main_full"] = len(digest)
+    fq_res["results_equal_main_full"] = _same_results(rec0, recq)
+    del db, rec0, recq
+    emit(fq_res)
+
+    emb = embed_phase()
+    emit(emb)
+    emit(embed_phase(steps=EMBED_DIAG_STEPS, tokens=EMBED_DIAG_TOKENS,
+                     diagnose=True))
+    # launches: each kernel's count in the full-size run of its path
+    where = {"clock_update": full_res, "msc_score": full_res,
+             "select_gather_rows": fq_res, "scatter_rows": fq_res,
+             "gather_rows": emb["cuda"]}
+    for r in rows:
+        r["launches"] = where[r["name"]]["launches"][r["name"]]
     emit({"phase": "done", "elapsed_s": time.time() - t_start})
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

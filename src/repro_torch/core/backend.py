@@ -1,7 +1,8 @@
 """Static backend dispatch and device resolution for the port.
 
-The two kernelized hot-path primitives -- the CLOCK tracker update
-(§4.3) and approx-MSC candidate scoring (§5) -- each exist twice: a plain
+The kernelized hot-path primitives -- the CLOCK tracker update (§4.3),
+approx-MSC candidate scoring (§5) and the tier_compact row movers of the
+quantized drain and the payload mirrors -- each exist twice: a plain
 PyTorch version and a hand-written CUDA kernel under
 ``repro_torch.kernels``.  This module decides which one runs.
 

@@ -6,7 +6,10 @@ drop superseded run objects, optionally promote hot run objects, merge
 the survivors and the demotions into fresh runs (new Bloom filters,
 directory entries, incremental index maintenance), update tracker
 location bits, bucket statistics and counters.  A port of the JAX
-package's ``compact_once`` for two tiers.
+package's ``compact_once`` for two tiers, with its ``Movement`` output
+(for payload mirrors and the in-flight carry) and the preemptible
+micro-step drain of ``compaction_quantum > 0`` (``InFlight``,
+``drain_quantum``, ``inflight_read``, ``defer_adjust``).
 
 Pool-sized tensors (both tiers' keys, values, versions, run ids, the run
 directory, the Bloom filters and the tracker's location bits) are written
@@ -21,11 +24,29 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import bloom, mapper, msc, prng, tracker
-from repro_torch.core.tiers import TierConfig, TierState, bucket_of
+from repro_torch.core.backend import resolve_device
+from repro_torch.core.tiers import Counters, TierConfig, TierState, bucket_of
 from repro_torch.core.utils import (PADKEY, add_where, alloc_slots, fdiv,
                                     merge_index_update, nonzero_fixed,
                                     searchsorted, segment_in_range,
                                     set_where, sorted_lookup, take)
+from repro_torch.kernels.tier_compact.ops import movers
+
+
+class Movement(NamedTuple):
+    """Physical data movement of one compaction, for payload mirrors and
+    the in-flight carry.  Static sizes (merged rows: cap_fast + cap_slow;
+    promotions: cap_slow), masked by the ``*_valid`` fields; int32 slots,
+    -1 where a row is not valid.  ``m_src_tier`` is 0 = fast, 1 = slow."""
+    m_src_tier: torch.Tensor   # i32[capm] source tier per merged write
+    m_src_slot: torch.Tensor   # i32[capm] source slot in its tier
+    m_dst_slot: torch.Tensor   # i32[capm] destination slow slot
+    m_valid: torch.Tensor      # bool[capm]
+    p_src_slot: torch.Tensor   # i32[cap_s] promotion source (slow slot)
+    p_dst_slot: torch.Tensor   # i32[cap_s] promotion destination
+    p_valid: torch.Tensor      # bool[cap_s]
+    m_key: torch.Tensor = ()   # i32[capm] merged keys, sorted (PADKEY pad)
+    boundary: torch.Tensor = ()  # i32: the tier boundary crossed (0)
 
 
 class CompactionStats(NamedTuple):
@@ -45,9 +66,9 @@ def compact_once(state: TierState, cfg: TierConfig, key: torch.Tensor,
                  cap_fast: int | None = None, cap_slow: int | None = None,
                  force_pin_keys: torch.Tensor | None = None,
                  selection: str = "msc", pin_mode: str = "object",
-                 backend: str = "reference"
-                 ) -> tuple[TierState, CompactionStats]:
-    """One compaction at the slab/run boundary.  ``backend`` routes the
+                 backend: str = "reference", with_movement: bool = False):
+    """One compaction at the slab/run boundary: ``(state', stats)``, and
+    the ``Movement`` third when ``with_movement``.  ``backend`` routes the
     approx-MSC candidate scoring through the msc_score kernel."""
     if state.n_tiers != 2:
         raise NotImplementedError("n_tiers > 2 is not ported yet (ROADMAP "
@@ -260,5 +281,202 @@ def compact_once(state: TierState, cfg: TierConfig, key: torch.Tensor,
         dir_active=(run_active,), dir_blooms=(blooms,), tracker=trk,
         bucket_fast=bucket_fast, bucket_slow=bucket_slow,
         bucket_overlap=bucket_overlap, ctr=ctr)
-    return new_state, stats
+    if not with_movement:
+        return new_state, stats
+    src_tier = torch.cat([torch.zeros_like(fslots), torch.ones_like(sslots)])
+    mv = Movement(
+        m_src_tier=src_tier[order].to(i32),
+        m_src_slot=torch.cat([fslots, sslots])[order].to(i32),
+        m_dst_slot=torch.where(wrote, new_slots, -1).to(i32),
+        m_valid=wrote,
+        p_src_slot=torch.where(pro_ok, sslots, -1).to(i32),
+        p_dst_slot=torch.where(pro_ok, pro_slots, -1).to(i32),
+        p_valid=pro_ok, m_key=mkeys.to(i32), boundary=zero.clone())
+    return new_state, stats, mv
 
+
+
+# ------------------------------------------- preemptible micro-step drain
+#
+# With ``EngineConfig.compaction_quantum > 0`` the trigger step still
+# commits the compaction's logical transition (pools, indexes, run
+# directory, counters), so the state is bit-identical for any quantum;
+# the physical migration -- the staged Movement rows -- and its modeled
+# I/O ride ``InFlight`` and drain at most ``quantum`` merged rows per
+# engine step through the tier_compact movers.  A replayed row is copied
+# only while its destination still holds the same key and value (the
+# idempotence guard), so a drain never changes a value that is visible.
+
+
+class InFlight(NamedTuple):
+    """The un-drained remainder of triggered jobs, and the latest job's
+    staged Movement rows (cap-shaped, never pool-shaped).  ``rem_*``
+    accumulate over jobs; ``m_*`` describe the LATEST job only: older
+    rows are already bit-resident at their destinations."""
+    rem_rows: torch.Tensor         # i32: un-drained merged rows (all jobs)
+    rem_run_read: torch.Tensor     # i32: un-attributed seq run reads
+    rem_run_written: torch.Tensor  # i32: un-attributed seq run writes
+    rem_fast_read: torch.Tensor    # i32: un-attributed demotion reads
+    rem_fast_write: torch.Tensor   # i32: un-attributed promotion writes
+    lo: torch.Tensor               # i32: union of in-flight key ranges
+    hi: torch.Tensor
+    score: torch.Tensor            # f32: latest job's MSC score
+    trigger: torch.Tensor          # i32: latest job's TRIG_* kind
+    m_key: torch.Tensor            # i32[capm] merged keys, sorted
+    m_src_tier: torch.Tensor       # i32[capm] 0=fast 1=slow
+    m_src_slot: torch.Tensor       # i32[capm]
+    m_dst_slot: torch.Tensor       # i32[capm] destination slow slot, -1
+    m_done: torch.Tensor           # i32: drained merge-row cursor
+    m_total: torch.Tensor          # i32: latest job's merged-row count
+    boundary: torch.Tensor = ()    # i32: latest job's boundary (0)
+
+
+def inflight_cap(cfg: TierConfig) -> int:
+    """Static staged-row capacity: one compaction's merge working set."""
+    return 2 * cfg.run_size + 2 * cfg.run_size * max(cfg.range_fanout_i, 1)
+
+
+def init_inflight(cfg: TierConfig, device=None) -> InFlight:
+    """An empty carry on ``device`` (None: the card; raises without one)."""
+    dev = resolve_device(device)
+    capm = inflight_cap(cfg)
+    z = lambda: torch.zeros((), dtype=torch.int32, device=dev)
+    full = lambda v: torch.full((capm,), v, dtype=torch.int32, device=dev)
+    return InFlight(
+        rem_rows=z(), rem_run_read=z(), rem_run_written=z(),
+        rem_fast_read=z(), rem_fast_write=z(), lo=z(), hi=z(),
+        score=torch.zeros((), dtype=torch.float32, device=dev), trigger=z(),
+        m_key=full(PADKEY), m_src_tier=full(0), m_src_slot=full(0),
+        m_dst_slot=full(-1), m_done=z(), m_total=z(), boundary=z())
+
+
+def stage_inflight(fl: InFlight, stats: CompactionStats, mv: Movement,
+                   trigger: int) -> InFlight:
+    """Fold one just-committed compaction into the carry.  ``rem_rows``
+    grows by at least 1, so a job that merged nothing still drains (and
+    logs its commit event) on a later step."""
+    active = fl.rem_rows > 0
+    return fl._replace(
+        rem_rows=fl.rem_rows + stats.n_merged.clamp(min=1),
+        rem_run_read=fl.rem_run_read + stats.n_run_read,
+        rem_run_written=fl.rem_run_written + stats.n_run_written,
+        rem_fast_read=fl.rem_fast_read + stats.n_demoted,
+        rem_fast_write=fl.rem_fast_write + stats.n_promoted,
+        lo=torch.where(active, torch.minimum(fl.lo, stats.selected_lo),
+                       stats.selected_lo),
+        hi=torch.where(active, torch.maximum(fl.hi, stats.selected_hi),
+                       stats.selected_hi),
+        score=stats.score.to(torch.float32),
+        trigger=torch.full_like(fl.trigger, trigger),
+        m_key=mv.m_key, m_src_tier=mv.m_src_tier, m_src_slot=mv.m_src_slot,
+        m_dst_slot=mv.m_dst_slot, m_done=torch.zeros_like(fl.m_done),
+        m_total=stats.n_merged.to(torch.int32),
+        boundary=torch.zeros_like(fl.m_done))
+
+
+def drain_quantum(state: TierState, fl: InFlight, quantum: int, *,
+                  backend: str = "reference"
+                  ) -> tuple[TierState, InFlight, tuple, torch.Tensor]:
+    """Drain at most ``quantum`` merged rows of the in-flight migration.
+
+    Attribution: ``k = min(quantum, rem_rows)`` rows come off the backlog
+    with a proportional share of each modeled-I/O category (the final
+    drain takes every remainder).  Replay: the window
+    ``[m_done, m_done + k)`` of the latest job's staged rows is gathered
+    through B3 (``select_gather_rows``) and scattered by B4
+    (``scatter_rows``) to its destination slow slots, in place, where the
+    destination still holds the row's key and value bits (compared as
+    floats, as the JAX package does).
+
+    No host read: the window start is index arithmetic on the device, and
+    with nothing in flight ``k`` is 0, every row is masked off and no
+    leaf changes, so the engine runs this branchless on every step.
+    Returns ``(state', fl', (run_read, run_written, fast_read,
+    fast_write), k)``."""
+    f32 = torch.float32
+    k = fl.rem_rows.clamp(max=int(quantum))
+    rem_after = fl.rem_rows - k
+    finish = (fl.rem_rows > 0) & (rem_after == 0)
+    denom = fl.rem_rows.to(f32).clamp(min=1.0)
+
+    def share(rem: torch.Tensor) -> torch.Tensor:
+        prop = torch.floor(rem.to(f32) * k.to(f32) / denom).to(torch.int32)
+        return torch.where(finish, rem, torch.minimum(prop, rem))
+
+    d_rr, d_rw = share(fl.rem_run_read), share(fl.rem_run_written)
+    d_fr, d_fw = share(fl.rem_fast_read), share(fl.rem_fast_write)
+
+    # ---- physical replay of the staged window [m_done, m_done + k) -----
+    capm = fl.m_key.shape[0]
+    q = min(max(int(quantum), 1), capm)
+    start = fl.m_done.clamp(0, capm - q)
+    pos = start.to(torch.int64) + torch.arange(q, dtype=torch.int64,
+                                               device=start.device)
+    keys, tier_src = fl.m_key[pos], fl.m_src_tier[pos]
+    src, dst = fl.m_src_slot[pos], fl.m_dst_slot[pos]
+    in_q = (pos >= fl.m_done) & (pos < fl.m_done + k) & (pos < fl.m_total)
+    fast_vals, slow_vals = state.vals
+    slow_keys = state.keys[1]
+    nf, ns = state.keys[0].shape[0], slow_keys.shape[0]
+    src_slow = tier_src != 0
+    idx = torch.where(src_slow, src.clamp(0, ns - 1), src.clamp(0, nf - 1))
+    sel, _, scatter = movers(backend, slow_vals)
+    rows = sel(fast_vals, slow_vals, src_slow, idx)
+    dst_c = dst.to(torch.int64).clamp(0, ns - 1)
+    live = (in_q & (keys != PADKEY) & (dst >= 0) & (slow_keys[dst_c] == keys)
+            & (rows == slow_vals[dst_c]).all(dim=1))
+    scatter(slow_vals, torch.where(live, dst, ns), rows, live)
+
+    fl = fl._replace(
+        rem_rows=rem_after,
+        rem_run_read=fl.rem_run_read - d_rr,
+        rem_run_written=fl.rem_run_written - d_rw,
+        rem_fast_read=fl.rem_fast_read - d_fr,
+        rem_fast_write=fl.rem_fast_write - d_fw,
+        m_done=torch.minimum(fl.m_done + k, fl.m_total))
+    return state, fl, (d_rr, d_rw, d_fr, d_fw), k
+
+
+def inflight_read(state: TierState, fl: InFlight, keys: torch.Tensor,
+                  vals: torch.Tensor, found: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """Dual lookup against a half-migrated range: a get found in the slow
+    tier whose key has a staged, not yet drained row is served from that
+    row's source slot while the source still matches the destination's
+    key and value (so the value returned equals the logical lookup's)."""
+    active = fl.rem_rows > 0
+    in_range = (keys >= fl.lo) & (keys < fl.hi)
+    capm = fl.m_key.shape[0]
+    pos = searchsorted(fl.m_key, keys).clamp(0, capm - 1)
+    staged = (fl.m_key[pos] == keys) & (pos >= fl.m_done) \
+        & (pos < fl.m_total)
+    fast_vals, slow_vals = state.vals
+    slow_keys = state.keys[1]
+    nf, ns = state.keys[0].shape[0], slow_keys.shape[0]
+    s_slot = fl.m_src_slot[pos].to(torch.int64)
+    s_dst = fl.m_dst_slot[pos]
+    sval = torch.where((fl.m_src_tier[pos] != 0)[:, None],
+                       slow_vals[s_slot.clamp(0, ns - 1)],
+                       fast_vals[s_slot.clamp(0, nf - 1)])
+    dst_c = s_dst.to(torch.int64).clamp(0, ns - 1)
+    coherent = (s_dst >= 0) & (slow_keys[dst_c] == keys) \
+        & (sval == slow_vals[dst_c]).all(dim=1)
+    use = active & in_range & staged & coherent & found & (src == 1)
+    return torch.where(use[:, None], sval, vals)
+
+
+def defer_adjust(delta: Counters, before: InFlight,
+                 after: InFlight) -> Counters:
+    """Re-attribute one step's counter delta for the obs plane: take off
+    the I/O deferred into the carry this step (staged minus drained, per
+    category).  Quantized jobs are boundary 0: tier-0 random categories
+    and tier-1 sequential ones.  The counters themselves are unchanged."""
+    n_rr = after.rem_run_read - before.rem_run_read
+    n_rw = after.rem_run_written - before.rem_run_written
+    n_fr = after.rem_fast_read - before.rem_fast_read
+    n_fw = after.rem_fast_write - before.rem_fast_write
+    zero = torch.zeros_like(n_rr)
+    return delta._replace(
+        reads=delta.reads - torch.stack([n_fr, n_rr]),
+        comp_reads=delta.comp_reads - torch.stack([zero, n_rr]),
+        writes=delta.writes - torch.stack([n_fw, n_rw]))

@@ -1,7 +1,9 @@
 """PrismDB facade: the paper's client interface over the port's engine.
 
 A client batch is one ``engine.engine_step``: the data op and the whole
-compaction control plane (rate limit, watermark loop, §5.3 read policy).
+compaction control plane (rate limit, watermark loop, §5.3 read policy,
+and with ``compaction_quantum > 0`` one drained quantum of the in-flight
+migration).
 ``device=None`` means the card; ``backend`` defaults to "cuda" (the
 hand-written kernels).  The CPU tests pass ``device="cpu"``, where the
 "cuda" backend takes each kernel's plain PyTorch version.
@@ -41,7 +43,7 @@ class PrismDB:
             append_only=append_only, consolidate_every=consolidate_every,
             backend=backend, obs=obs, compaction_quantum=compaction_quantum)
         self.estate = engine.init(self.ecfg, prng.PRNGKey(seed),
-                                  self.device)
+                                  device=self.device)
         self.dispatches = 0
         self.host_reads = 0
 

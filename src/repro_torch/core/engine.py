@@ -1,9 +1,13 @@
 """The engine step: one client batch with its whole control plane.
 
-A port of the JAX package's ``core/engine.py`` for the two-tier,
-run-to-completion configuration.  ``engine_step`` runs the maintenance
-loop (§4.2 rate limit, watermark hysteresis, §5.3 read policy), then the
-masked put/get/delete pass, the scan lane and the obs record.
+A port of the JAX package's ``core/engine.py`` for two tiers.
+``engine_step`` runs the maintenance loop (§4.2 rate limit, watermark
+hysteresis, §5.3 read policy), then, with ``compaction_quantum > 0``,
+one drained quantum of the in-flight migration (``drain_tick``), the
+masked put/get/delete pass, the scan lane and the obs record.  A
+``mirror(payload, movement) -> payload`` replays every compaction's
+Movement on the payload pools of ``EngineState.payload`` (the embedding
+row store) at commit.
 
 The JAX package keeps the maintenance loop on the device
 (``lax.while_loop``).  Here it is a Python loop bounded by
@@ -17,7 +21,7 @@ it is given, as the JAX engine's donated buffers are.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -27,9 +31,12 @@ from repro_torch.core import compaction, policy, prng, tiers
 from repro_torch.core.tiers import (Counters, TierConfig, TierState,
                                     TrackerState)
 from repro_torch.obs import state as obs_plane
+from repro_torch.obs.cost import drain_io_us
 from repro_torch.obs.state import ObsConfig, ObsState
 
 PUT, GET, DELETE, SCAN = 0, 1, 2, 3
+
+MirrorFn = Callable[[Any, compaction.Movement], Any]
 
 
 class HostReads:
@@ -71,9 +78,10 @@ class EngineState(NamedTuple):
                                 # key words (see core.prng)
     virtual_extra: torch.Tensor  # i32: append-only phantom fast-tier fill
     steps: torch.Tensor         # i32: engine steps (consolidation clock)
-    payload: Any = ()
+    payload: Any = ()           # pytree mirrored through compactions
     obs: Any = ()               # ObsState when cfg.obs.enabled, else ()
-    comp: Any = ()              # in-flight carry: not ported (quantum 0)
+    comp: Any = ()              # compaction.InFlight when
+                                # cfg.compaction_quantum > 0, else ()
 
 
 class OpBatch(NamedTuple):
@@ -99,23 +107,25 @@ def check_supported(cfg: EngineConfig) -> None:
         raise NotImplementedError(
             "n_tiers > 2 is not ported yet (ROADMAP Queue 1: N=3, "
             "compact_boundary / _deep_tick)")
-    if cfg.compaction_quantum > 0:
-        raise NotImplementedError(
-            "compaction_quantum > 0 is not ported yet (ROADMAP Queue 1: "
-            "next slice, tier_compact B3/B4 + InFlight/drain_quantum)")
 
 
-def init(cfg: EngineConfig, rng: torch.Tensor, device=None) -> EngineState:
+def init(cfg: EngineConfig, rng: torch.Tensor, payload: Any = (),
+         tier: TierState | None = None, device=None) -> EngineState:
     """A fresh engine state on ``device`` (None: the card; raises without
-    one).  ``rng`` is a host key from ``prng.PRNGKey``."""
+    one).  ``rng`` is a host key from ``prng.PRNGKey``; ``payload`` is
+    mirrored through compactions; ``tier`` replaces the empty tier state
+    (it must lie on ``device``)."""
     check_supported(cfg)
     dev = backend_mod.resolve_device(device)
     return EngineState(
-        tier=tiers.init(cfg.tier, dev), pol=policy.init(dev),
-        rng=rng.cpu(),
+        tier=tier if tier is not None else tiers.init(cfg.tier, dev),
+        pol=policy.init(dev), rng=rng.cpu(),
         virtual_extra=torch.zeros((), dtype=torch.int32, device=dev),
         steps=torch.zeros((), dtype=torch.int32, device=dev),
-        obs=obs_plane.init(cfg.obs, dev) if cfg.obs.enabled else ())
+        payload=payload,
+        obs=obs_plane.init(cfg.obs, dev) if cfg.obs.enabled else (),
+        comp=(compaction.init_inflight(cfg.tier, dev)
+              if cfg.compaction_quantum > 0 else ()))
 
 
 def make_op(kind: int, keys, vals=None, valid=None, aux=None, *,
@@ -143,22 +153,41 @@ def make_op(kind: int, keys, vals=None, valid=None, aux=None, *,
 
 # ------------------------------------------------------------ compaction
 
-def _compact1(state: EngineState, cfg: EngineConfig, force_pin_keys,
+def _compact1(state: EngineState, cfg: EngineConfig,
+              mirror: MirrorFn | None, force_pin_keys,
               trigger: int) -> EngineState:
-    """One compaction + append-only fill accounting + one obs event."""
+    """One compaction + payload mirroring + append-only fill accounting
+    + one obs event.  With ``cfg.compaction_quantum > 0`` the logical
+    transition still commits here, the Movement rows and I/O categories
+    are staged into the in-flight carry, and the event is an EV_START
+    with zero ``io_us``: the cost lands on the draining steps."""
+    quantized = cfg.compaction_quantum > 0
+    want_mv = quantized or mirror is not None
     rng, sub = prng.split(state.rng, 2)
-    tier, stats = compaction.compact_once(
+    out = compaction.compact_once(
         state.tier, cfg.tier, sub, promote=cfg.promote, precise=cfg.precise,
         selection=cfg.selection, pin_mode=cfg.pin_mode,
-        force_pin_keys=force_pin_keys, backend=cfg.backend)
+        force_pin_keys=force_pin_keys, backend=cfg.backend,
+        with_movement=want_mv)
+    tier, stats = out[:2]
+    payload, comp = state.payload, state.comp
+    if mirror is not None:
+        # mirrors replay at commit, not per quantum: a later step may
+        # recycle the source slots
+        payload = mirror(payload, out[2])
+    if quantized:
+        comp = compaction.stage_inflight(comp, stats, out[2], trigger)
     ve = state.virtual_extra
     if cfg.append_only:
         ve = (ve - stats.n_superseded).clamp(min=0)
     obs = state.obs
     if cfg.obs.enabled:
+        start = dict(kind=obs_plane.EV_START, io_us=0.0) if quantized else {}
         obs = obs_plane.record_compaction(obs, cfg.obs, step=state.steps,
-                                          trigger=trigger, stats=stats)
-    return state._replace(tier=tier, rng=rng, virtual_extra=ve, obs=obs)
+                                          trigger=trigger, stats=stats,
+                                          **start)
+    return state._replace(tier=tier, rng=rng, virtual_extra=ve,
+                          payload=payload, obs=obs, comp=comp)
 
 
 def _occupancy(used: int, n: int) -> np.float32:
@@ -168,6 +197,7 @@ def _occupancy(used: int, n: int) -> np.float32:
 
 def maintenance(state: EngineState, cfg: EngineConfig, *, need=0,
                 wm_gate: bool = True, policy_enable: bool = True,
+                mirror: MirrorFn | None = None,
                 force_pin_keys=None) -> EngineState:
     """The maintenance plane as one loop bounded by ``cfg.max_rounds``:
     compact while usable fast slots are below ``need`` (§4.2 rate
@@ -202,7 +232,7 @@ def maintenance(state: EngineState, cfg: EngineConfig, *, need=0,
             break
         trig = (obs_plane.TRIG_RATE_LIMIT if rate else
                 obs_plane.TRIG_WATERMARK if wm else obs_plane.TRIG_POLICY)
-        state = _compact1(state, cfg, force_pin_keys, trig)
+        state = _compact1(state, cfg, mirror, force_pin_keys, trig)
         rounds += 1
         free, ve = _read(tiers.free_fast_slots(state.tier),
                          state.virtual_extra)
@@ -210,17 +240,45 @@ def maintenance(state: EngineState, cfg: EngineConfig, *, need=0,
 
 
 def maintain(state: EngineState, cfg: EngineConfig, need=0, *,
-             force_pin_keys=None, wm_gate: bool = True) -> EngineState:
+             mirror: MirrorFn | None = None, force_pin_keys=None,
+             wm_gate: bool = True) -> EngineState:
     """Rate-limit + watermark compactions only (no policy step)."""
     return maintenance(state, cfg, need=need, wm_gate=wm_gate,
-                       policy_enable=False, force_pin_keys=force_pin_keys)
+                       policy_enable=False, mirror=mirror,
+                       force_pin_keys=force_pin_keys)
 
 
 def read_policy(state: EngineState, cfg: EngineConfig, *,
-                force_pin_keys=None, enable: bool = True) -> EngineState:
+                mirror: MirrorFn | None = None, force_pin_keys=None,
+                enable: bool = True) -> EngineState:
     """§5.3 read-triggered policy step + its compaction budget only."""
     return maintenance(state, cfg, need=0, wm_gate=False,
-                       policy_enable=enable, force_pin_keys=force_pin_keys)
+                       policy_enable=enable, mirror=mirror,
+                       force_pin_keys=force_pin_keys)
+
+
+def drain_tick(state: EngineState, cfg: EngineConfig) -> EngineState:
+    """Drain one compaction quantum from the in-flight carry and log the
+    resume/commit event; nothing when the quantum knob is off.  Runs on
+    every engine step, right behind the maintenance loop, with no host
+    read: on a step with nothing in flight it changes no leaf (see
+    ``compaction.drain_quantum``; ``record_drain`` writes nothing when
+    nothing moved), where the JAX package gates it with a count-gated
+    ``while_loop``."""
+    if cfg.compaction_quantum <= 0:
+        return state
+    fl0 = state.comp
+    tier, fl, drained, k = compaction.drain_quantum(
+        state.tier, fl0, cfg.compaction_quantum, backend=cfg.backend)
+    state = state._replace(tier=tier, comp=fl)
+    if cfg.obs.enabled:
+        state = state._replace(obs=obs_plane.record_drain(
+            state.obs, cfg.obs, step=state.steps, trigger=fl0.trigger,
+            score=fl0.score, moved=k,
+            io_us=drain_io_us(*drained, cfg.obs.cost,
+                              cfg.obs.fast_write_amp),
+            done=(fl0.rem_rows > 0) & (fl.rem_rows == 0)))
+    return state
 
 
 def _consolidation_tick(state: EngineState, cfg: EngineConfig
@@ -239,28 +297,32 @@ def engine_step(state: EngineState, op: OpBatch, cfg: EngineConfig, *,
                 ) -> tuple[EngineState, OpResult]:
     """One client batch, control plane included.  ``op.kind`` is read on
     the host (it is a host scalar from ``make_op``/``run_ops``); the lanes
-    of the other kinds are masked off as in the JAX package.  Payload
-    mirrors are not ported yet: ``mirror`` must be None."""
-    if mirror is not None:
-        raise NotImplementedError(
-            "payload mirrors are not ported yet (ROADMAP Queue 1 item 11, "
-            "tier_compact B5)")
+    of the other kinds are masked off as in the JAX package.  ``mirror``
+    replays each compaction's Movement on ``state.payload`` at commit;
+    with ``compaction_quantum > 0`` one quantum drains right behind the
+    maintenance loop and gets inside the in-flight range are served by
+    ``compaction.inflight_read``."""
     kind = int(op.kind)
     is_put, is_get = kind == PUT, kind == GET
     is_del, is_scan = kind == DELETE, kind == SCAN
     dev = op.keys.device
     ctr0 = state.tier.ctr
+    comp0 = state.comp     # carry baseline for the obs cost deferral
     n_valid = op.valid.sum(dtype=torch.int32)
     need = n_valid if is_put else 0
 
     state = maintenance(state, cfg, need=need, wm_gate=True,
-                        policy_enable=is_get or is_scan,
+                        policy_enable=is_get or is_scan, mirror=mirror,
                         force_pin_keys=force_pin_keys)
+    state = drain_tick(state, cfg)
     before = tiers.free_fast_slots(state.tier) if cfg.append_only else None
 
     tier, gvals, gfound, gsrc = tiers.apply_point_ops(
         state.tier, cfg.tier, op.keys, op.vals, op.valid, is_put=is_put,
         is_get=is_get, is_del=is_del, backend=cfg.backend)
+    if cfg.compaction_quantum > 0 and is_get:
+        gvals = compaction.inflight_read(tier, state.comp, op.keys, gvals,
+                                         gfound, gsrc)
     if is_scan:
         lens = op.aux.clamp(max=cfg.scan_chunk)
         tier, n_live = tiers.scan_batch(tier, cfg.tier, op.keys, lens,
@@ -280,6 +342,8 @@ def engine_step(state: EngineState, op: OpBatch, cfg: EngineConfig, *,
 
     if cfg.obs.enabled:
         delta = obs_plane.counter_delta(state.tier.ctr, ctr0)
+        if cfg.compaction_quantum > 0:
+            delta = compaction.defer_adjust(delta, comp0, state.comp)
         state = state._replace(obs=obs_plane.record_step(
             state.obs, cfg.obs, kind=kind, n_ops=n_valid, delta=delta))
 
@@ -313,22 +377,30 @@ def run_ops(state: EngineState, ops: OpBatch, cfg: EngineConfig, *,
 # ------------------------------------------------- state carried across
 
 _TYPES = {c.__name__: c for c in (EngineState, TierState, TrackerState,
-                                  Counters, policy.PolicyState, ObsState)}
+                                  Counters, policy.PolicyState, ObsState,
+                                  compaction.InFlight)}
 
 
-def state_from_numpy(tree, cfg: EngineConfig, device=None) -> EngineState:
+def state_from_numpy(tree, cfg: EngineConfig, device=None,
+                     payload_types=()) -> EngineState:
     """A JAX ``EngineState`` (after ``jax.device_get``: numpy leaves) ->
     the port's state, leaf for leaf: pools, indexes, run directory,
     blooms (uint32 -> int32 bit pattern), tracker, buckets, counters,
-    policy, obs, and the rng key words (uint32 -> int64).  Copies every
-    leaf, so the engine's in-place updates never reach the source."""
+    policy, obs, the in-flight carry, and the rng key words (uint32 ->
+    int64).  A payload's NamedTuple classes come in ``payload_types``
+    (the embedding store's: ``(embedding_store.EmbedStoreState,)``).
+    Copies every leaf, so the engine's in-place updates never reach the
+    source."""
     check_supported(cfg)
     dev = backend_mod.resolve_device(device)
+    types = dict(_TYPES, **{c.__name__: c for c in payload_types})
 
     def conv(x, field=None):
         name = type(x).__name__
+        if x is None:
+            return None
         if isinstance(x, tuple) and hasattr(x, "_fields"):
-            cls = _TYPES.get(name)
+            cls = types.get(name)
             if cls is None or cls._fields != x._fields:
                 raise ValueError(f"cannot carry {name} across")
             return cls(*[conv(getattr(x, f), f) for f in x._fields])
@@ -348,6 +420,8 @@ def state_to_numpy(state: EngineState):
     """The port's state -> the same structure with numpy leaves in the
     JAX package's dtypes (rng and blooms back to uint32)."""
     def conv(x, field=None):
+        if x is None:
+            return None
         if isinstance(x, tuple) and hasattr(x, "_fields"):
             return type(x)(*[conv(getattr(x, f), f) for f in x._fields])
         if isinstance(x, tuple):

@@ -18,6 +18,9 @@ Semantics follow jax 0.9 with its default
 * ``random_bits``     = w0 ^ w1 of threefry(key, (0, i)) over the flat
                         element index i
 * ``fold_in(key, d)`` = threefry(key, (0, d))
+
+A bulk draw (``normal``: an embedding table of 3e8 values) runs the same
+hash as int64 tensor ops on the target device, in chunks.
 """
 from __future__ import annotations
 
@@ -121,3 +124,48 @@ def uniform(key: torch.Tensor, shape: tuple, device=None) -> torch.Tensor:
     f = ((bits >> _U(9)) | _U(0x3F800000)).view(np.float32) \
         - np.float32(1.0)
     return _to(np.maximum(f, np.float32(0.0)), device or "cpu")
+
+
+def _threefry_t(k0: int, k1: int, x1: torch.Tensor) -> torch.Tensor:
+    """``threefry2x32`` on int64 tensors holding uint32 values (x0 = 0),
+    on ``x1``'s device; returns ``w0 ^ w1`` (the ``random_bits`` word)."""
+    ks = (k0, k1, (k0 ^ k1 ^ 0x1BD11BDA) & M32)
+    x0 = torch.full_like(x1, ks[0])
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+    return x0 ^ x1
+
+
+_CHUNK = 1 << 24     # elements hashed at a time: 128 MB int64 temporaries
+
+
+def normal(key: torch.Tensor, shape: tuple, device=None) -> torch.Tensor:
+    """``jax.random.normal`` in float32: uniform on (-1, 1) from the same
+    bits (exact), then ``sqrt(2) * erfinv``.  torch's ``erfinv`` is not
+    XLA's approximation, so values agree to a few ULP, not bit for bit
+    (up to 5.6e-6 relative, in the tails).  The hash runs on ``device``
+    (default CPU), in chunks."""
+    dev = torch.device(device or "cpu")
+    n = int(np.prod(shape, dtype=np.int64))
+    k0, k1 = _words(key)
+    f32 = torch.float32
+    lo_np = np.nextafter(np.float32(-1), np.float32(0))
+    lo = torch.full((), float(lo_np), dtype=f32, device=dev)
+    span = torch.full((), float(np.float32(1) - lo_np), dtype=f32,
+                      device=dev)
+    root2 = torch.full((), float(np.float32(np.sqrt(2))), dtype=f32,
+                       device=dev)
+    out = torch.empty(n, dtype=f32, device=dev)
+    for a in range(0, n, _CHUNK):
+        c = torch.arange(a, min(n, a + _CHUNK), dtype=torch.int64,
+                         device=dev)
+        bits = _threefry_t(k0, k1, c)
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(f32) - 1.0
+        u = torch.maximum(lo, f * span + lo)
+        out[a:a + c.numel()] = root2 * torch.special.erfinv(u)
+    return out.view(shape)

@@ -101,8 +101,8 @@ def count_into(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 _BITS = {torch.float32: torch.int32, torch.int32: torch.int32,
-         torch.int8: torch.int8, torch.bool: torch.uint8,
-         torch.int64: torch.int64}
+         torch.bfloat16: torch.int16, torch.int8: torch.int8,
+         torch.bool: torch.uint8, torch.int64: torch.int64}
 
 
 def set_where(dst: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,

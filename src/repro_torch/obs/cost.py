@@ -70,3 +70,19 @@ def compaction_io_us(stats, cost: CostModel, fast_write_amp: float = 1.0,
             + stats.n_run_written.to(f32) * lo.seq_write_us_per_obj
             + stats.n_demoted.to(f32) * up.read_us
             + stats.n_promoted.to(f32) * (up.write_us * fast_write_amp))
+
+
+def drain_io_us(run_read: torch.Tensor, run_written: torch.Tensor,
+                fast_read: torch.Tensor, fast_write: torch.Tensor,
+                cost: CostModel, fast_write_amp: float = 1.0) -> torch.Tensor:
+    """Modeled I/O microseconds (f32) of one compaction QUANTUM, the slice
+    of an in-flight migration drained in one engine step
+    (``compaction.drain_quantum``).  Quantized jobs are boundary 0, so the
+    categories are ``compaction_io_us``'s, and a job's quanta sum to its
+    run-to-completion charge."""
+    f32 = torch.float32
+    up, lo = cost.tier(0), cost.tier(1)
+    return (run_read.to(f32) * lo.seq_read_us_per_obj
+            + run_written.to(f32) * lo.seq_write_us_per_obj
+            + fast_read.to(f32) * up.read_us
+            + fast_write.to(f32) * (up.write_us * fast_write_amp))

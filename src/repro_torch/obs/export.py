@@ -13,7 +13,10 @@ QUANTILE_NAMES = {0.5: "p50", 0.99: "p99", 0.999: "p999"}
 
 def snapshot(obs) -> dict:
     """One readback of the obs state -> plain numpy dict."""
-    host = {k: v.detach().cpu().numpy() for k, v in obs._asdict().items()}
+    # a copy: on the CPU, .numpy() would share the live (in-place
+    # updated) obs tensors
+    host = {k: v.detach().cpu().numpy().copy()
+            for k, v in obs._asdict().items()}
     snap = dict(host)
     for k in ("t_pos", "ev_count", "ev_jobs"):
         snap[k] = int(host[k])

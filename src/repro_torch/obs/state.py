@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.backend import resolve_device
+from repro_torch.core.utils import take
 from repro_torch.obs.cost import CostModel, compaction_io_us, step_io_us
 
 TICK = 4
@@ -128,12 +129,17 @@ def record_step(obs: ObsState, cfg: ObsConfig, *, kind: int,
 
 def record_compaction(obs: ObsState, cfg: ObsConfig, *, step: torch.Tensor,
                       trigger: int, stats, kind: int = EV_COMMIT,
-                      boundary: int = 0) -> ObsState:
-    """Append one run-to-completion compaction to the event ring."""
+                      io_us=None, boundary: int = 0) -> ObsState:
+    """Append one compaction job to the event ring and count it in
+    ``ev_jobs``.  Run to completion keeps the defaults: one EV_COMMIT per
+    job pricing its whole migration.  The quantized path logs the trigger
+    as an EV_START with ``io_us=0.0`` (its cost lands on the draining
+    steps)."""
     i = obs.ev_count % cfg.event_len
     moved = stats.n_demoted + stats.n_promoted + stats.n_merged
-    io_us = compaction_io_us(stats, cfg.cost, cfg.fast_write_amp,
-                             boundary=boundary)
+    if io_us is None:
+        io_us = compaction_io_us(stats, cfg.cost, cfg.fast_write_amp,
+                                 boundary=boundary)
     _put(obs.ev_step, i, step)
     _put(obs.ev_trigger, i, trigger)
     _put(obs.ev_score, i, stats.score)
@@ -144,3 +150,32 @@ def record_compaction(obs: ObsState, cfg: ObsConfig, *, step: torch.Tensor,
     _put(obs.ev_boundary, i, boundary)
     obs.ev_jobs_b[boundary:boundary + 1].add_(1)
     return obs._replace(ev_count=obs.ev_count + 1, ev_jobs=obs.ev_jobs + 1)
+
+
+def record_drain(obs: ObsState, cfg: ObsConfig, *, step: torch.Tensor,
+                 trigger: torch.Tensor, score: torch.Tensor,
+                 moved: torch.Tensor, io_us: torch.Tensor,
+                 done: torch.Tensor) -> ObsState:
+    """Append one drained compaction quantum to the event ring: EV_RESUME
+    while the job has backlog left, EV_COMMIT on the quantum that
+    finishes it.  With ``moved == 0`` (nothing in flight) every slot is
+    rewritten with its own value and ``ev_count`` stays: the ring is
+    untouched bit for bit, with no host read."""
+    write = moved > 0
+    i = obs.ev_count % cfg.event_len
+    kind = torch.where(done, EV_COMMIT, EV_RESUME).to(torch.int32)
+
+    def put(t: torch.Tensor, v) -> None:
+        if not torch.is_tensor(v):
+            v = torch.full((), v, dtype=t.dtype, device=t.device)
+        _put(t, i, torch.where(write, v.to(t.dtype), take(t, i)))
+
+    put(obs.ev_step, step)
+    put(obs.ev_trigger, trigger)
+    put(obs.ev_score, score)
+    put(obs.ev_moved, moved)
+    put(obs.ev_superseded, 0)
+    put(obs.ev_io_us, io_us)
+    put(obs.ev_kind, kind)
+    put(obs.ev_boundary, 0)
+    return obs._replace(ev_count=obs.ev_count + write.to(torch.int32))

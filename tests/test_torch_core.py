@@ -276,10 +276,17 @@ def test_default_device_is_the_card():
 
 def _inits():
     from repro_torch.configs.prismdb_kv import paper_tier_config
-    from repro_torch.core import bloom, engine, policy, prng, tiers, tracker
+    from repro_torch.core import (bloom, compaction, embedding_store,
+                                  engine, policy, prng, tiers, tracker)
     from repro_torch.obs import state as tobs_state
     cfg = paper_tier_config(1)
+    ecfg = embedding_store.EmbedStoreConfig(vocab=2048, dim=8, fast_rows=128)
     return {
+        "compaction.init_inflight": lambda: compaction.init_inflight(cfg),
+        "embedding_store.init": lambda: embedding_store.init(
+            ecfg, prng.PRNGKey(0)),
+        "embedding_store.engine_init": lambda: embedding_store.engine_init(
+            ecfg, prng.PRNGKey(0)),
         "engine.init": lambda: engine.init(engine.EngineConfig(tier=cfg),
                                            prng.PRNGKey(0)),
         "engine.make_op": lambda: engine.make_op(engine.PUT, np.arange(4),
@@ -312,14 +319,31 @@ def test_unported_configs_raise():
                      value_width=1, max_runs=8, run_size=32,
                      bloom_bits_per_run=256, tracker_slots=128, n_buckets=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PrismDB(cfg, compaction_quantum=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         PrismDB(cfg._replace(tier_slots=(64, 128, 256)), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PrismDB(cfg._replace(tier_slots=(64, 128, 256)),
+                compaction_quantum=4, device="cpu")
     with pytest.raises(ValueError):
         PrismDB(cfg, backend="pallas", device="cpu")
+    # the quantized engine and payload mirrors run
     from repro_torch.core import engine
-    db = PrismDB(cfg, device="cpu")
+    db = PrismDB(cfg, compaction_quantum=4, device="cpu")
     op = engine.make_op(engine.PUT, np.arange(4), value_width=1,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.engine_step(db.estate, op, db.ecfg, mirror=lambda p, m: p)
+    engine.engine_step(db.estate, op, db.ecfg, mirror=lambda p, m: p)
+
+
+def test_obs_snapshot_is_a_copy():
+    """A snapshot keeps its values while the engine goes on updating the
+    obs tensors in place (on the CPU, ``.numpy()`` alone shares them), so
+    a delta of two snapshots counts the steps between them."""
+    from repro_torch.configs.prismdb_kv import paper_tier_config
+    from repro_torch.core.db import PrismDB
+    from repro_torch.obs import export
+    db = PrismDB(paper_tier_config(1), device="cpu")
+    s0 = db.obs_snapshot()
+    for i in range(4):
+        db.put(np.arange(i * 512, (i + 1) * 512))
+    s1 = db.obs_snapshot()
+    assert int(export.hist_delta(s1, s0).sum()) == 4 * 512
+    assert int(s0["hist"].sum()) == 0

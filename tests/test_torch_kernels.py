@@ -1,9 +1,11 @@
-"""Kernels B1 (clock_update) and B2 (msc_score) of the port.
+"""Kernels B1 (clock_update), B2 (msc_score) and B3-B5 (the tier_compact
+row movers select_gather_rows, scatter_rows, gather_rows) of the port.
 
 On the CPU: each wrapper takes its plain PyTorch version, held against
 the JAX package's kernel wrappers (``backend="reference"`` and the Pallas
 kernel in interpret mode) -- B1 bit-exact, B2 within rtol 1e-5 (the
-tolerance of tests/test_kernels.py) with equal argmax.
+tolerance of tests/test_kernels.py) with equal argmax; the movers' plain
+versions are held to JAX in tests/test_torch_mirror.py.
 On a card (marker ``cuda``, skipped without one): each CUDA kernel held
 against its plain version on the same inputs.  The machine with the card
 has no JAX, so the JAX package is imported only inside the CPU tests; run
@@ -202,4 +204,130 @@ def test_wrappers_refuse_cpu_tensors():
     args, bw = _msc_inputs(16, 4)
     with pytest.raises(ValueError):
         msc_scores(*map(t, args), bucket_width=bw)
+    assert kernels.LAUNCHES == before
+
+
+# ------------------------------------------------------ tier_compact movers
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def _pools(rng, dev, w, dtype, offset):
+    """A fast and a slow pool of random rows, optionally as views that
+    start one row into a larger buffer (so the row addresses are only
+    as aligned as the row width allows)."""
+    dt = getattr(torch, dtype)
+    mk = lambda n: torch.from_numpy(rng.normal(size=(n + offset, w))
+                                    .astype(np.float32)).to(dev, dt)[offset:]
+    return mk(37), mk(301)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("w", [2, 4, 8, 1152])
+def test_tier_compact_kernels_on_card(w, dtype, offset):
+    """B3, B4 and B5 against their plain versions, bit for bit: indices
+    at both ends of each pool, out-of-range gather indices (clamped),
+    invalid scatter rows left untouched, destinations whose old rows
+    differ from the rows written there."""
+    _needs_card()
+    from repro_torch.kernels.tier_compact import ops, ref
+    rng = np.random.default_rng(w * 10 + offset)
+    dev = torch.device("cuda")
+    fast, slow = _pools(rng, dev, w, dtype, offset)
+    nf, ns, m = fast.shape[0], slow.shape[0], 200
+    src_slow = rng.random(m) < 0.5
+    idx = np.where(src_slow, rng.integers(0, ns, m), rng.integers(0, nf, m))
+    idx[:4] = [0, nf - 1, 0, ns - 1]
+    src_slow[:4] = [False, False, True, True]
+    idx[4:6] = [-5, 10 * ns]                  # clamped like a JAX gather
+    idx_t = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    sl_t = torch.from_numpy(src_slow).to(dev)
+    n0 = dict(kernels.LAUNCHES)
+
+    got = ops.select_gather_rows(fast, slow, sl_t, idx_t)
+    want = ref.select_gather_rows_ref(fast, slow, sl_t, idx_t)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    got = ops.gather_rows(slow, idx_t)
+    want = ref.gather_rows_ref(slow, idx_t)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+    # scatter: unique destinations, both ends of the pool among them
+    dst = np.concatenate([[0, ns - 1],
+                          rng.permutation(np.arange(1, ns - 1))[:m - 2]])
+    valid = rng.random(m) > 0.3
+    rows = torch.from_numpy(rng.normal(size=(m, w)).astype(np.float32)) \
+        .to(dev, slow.dtype)
+    dst_t = torch.from_numpy(dst.astype(np.int32)).to(dev)
+    v_t = torch.from_numpy(valid).to(dev)
+    before = slow.clone()
+    got = ops.scatter_rows(slow.clone(), dst_t, rows, v_t)
+    want = ref.scatter_rows_ref(slow.clone(), dst_t, rows, v_t)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    written = torch.from_numpy(dst[valid]).long().to(dev)
+    assert torch.equal(_bits(got[written]), _bits(rows[v_t]))
+    assert not torch.equal(_bits(before[written]), _bits(rows[v_t]))
+    untouched = torch.ones(ns, dtype=torch.bool, device=dev)
+    untouched[written] = False
+    assert torch.equal(_bits(got[untouched]), _bits(before[untouched]))
+    assert kernels.LAUNCHES["select_gather_rows"] == \
+        n0["select_gather_rows"] + 1
+    assert kernels.LAUNCHES["gather_rows"] == n0["gather_rows"] + 1
+    assert kernels.LAUNCHES["scatter_rows"] == n0["scatter_rows"] + 1
+
+
+@pytest.mark.cuda
+def test_apply_movement_rows_kernels_on_card():
+    """The Movement replay through the kernels equals the plain movers on
+    an embedding-width Movement (promotion sources recycled by the run
+    write: the order of gathers and scatters matters)."""
+    _needs_card()
+    from repro_torch.core.compaction import Movement
+    from repro_torch.kernels.tier_compact.ops import apply_movement_rows
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    fast, slow = _pools(rng, dev, 1152, "float32", 0)
+    nf, ns, m = fast.shape[0], slow.shape[0], 64
+    p_valid = rng.random(m) < 0.4
+    p_valid[nf:] = False
+    m_dst = rng.permutation(ns)[:m]
+    mv = Movement(
+        m_src_tier=torch.from_numpy(rng.integers(0, 2, m).astype(np.int32)),
+        m_src_slot=torch.from_numpy(rng.integers(0, ns, m).astype(np.int32)),
+        m_dst_slot=torch.from_numpy(m_dst.astype(np.int32)),
+        m_valid=torch.from_numpy(rng.random(m) > 0.2),
+        p_src_slot=torch.from_numpy(np.where(p_valid, m_dst, -1)
+                                    .astype(np.int32)),
+        p_dst_slot=torch.from_numpy(np.where(
+            p_valid, np.resize(rng.permutation(nf), m), -1).astype(np.int32)),
+        p_valid=torch.from_numpy(p_valid))
+    mv = mv._replace(**{k: v.to(dev) for k, v in mv._asdict().items()
+                        if torch.is_tensor(v)})
+    want = apply_movement_rows(fast.clone(), slow.clone(), mv,
+                               backend="reference")
+    got = apply_movement_rows(fast.clone(), slow.clone(), mv, backend="cuda")
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_mover_wrappers_refuse_cpu_tensors():
+    """The tier_compact launch wrappers validate before they build or
+    launch: CPU tensors are refused, never taken by the plain versions."""
+    from repro_torch.kernels.tier_compact import ops
+    before = dict(kernels.LAUNCHES)
+    pool = torch.zeros((8, 4))
+    idx = torch.zeros(3, dtype=torch.int32)
+    flag = torch.ones(3, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        ops.gather_rows(pool, idx)
+    with pytest.raises(ValueError):
+        ops.select_gather_rows(pool, pool, flag, idx)
+    with pytest.raises(ValueError):
+        ops.scatter_rows(pool, idx, torch.zeros((3, 4)), flag)
     assert kernels.LAUNCHES == before

@@ -8,7 +8,7 @@ import torch
 
 def leaves(tree, path: str = "") -> list:
     """(path, numpy array) for every leaf of a NamedTuple/tuple tree, in
-    the order ``jax.tree.leaves`` uses."""
+    the order ``jax.tree.leaves`` uses (None is an empty subtree)."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         out = []
         for f in tree._fields:
@@ -19,6 +19,8 @@ def leaves(tree, path: str = "") -> list:
         for i, v in enumerate(tree):
             out += leaves(v, f"{path}[{i}]")
         return out
+    if tree is None:
+        return []
     if torch.is_tensor(tree):
         return [(path, tree.detach().cpu().numpy())]
     return [(path, np.asarray(tree))]
