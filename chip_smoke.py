@@ -9,9 +9,23 @@ Phases, each printed as one JSON line:
   2. kernels  -- each kernel against its plain PyTorch version on the card
                  at the main paths' shapes (clock_update and the three
                  tier_compact movers bit-exact, msc_score rtol 1e-5 with
-                 equal argmax), with CUDA-event times, the plain version's
-                 and a library call's where one computes the same function,
-                 and the card's bound for the same work
+                 equal argmax; flash_attention at phi4-mini's prefill and
+                 gemma3-1b's shapes, atol 2e-5 f32 / 2e-2 bf16), with
+                 CUDA-event times, the plain version's and a library
+                 call's where one computes the same function, and the
+                 card's bound for the same work
+  2a. prefill -- phi4-mini-3.8b at full width (float32 weights from a
+                 seed): forward and loss_fn on backend "cuda" (the
+                 flash_attention kernel once per layer) and "reference";
+                 tokens/s, peak memory, argmax agreement (>= 99.9%, every
+                 flip a near-tie)
+  2b. serve   -- the same model through ServeEngine over the tiered paged
+                 KV cache, two waves of requests, backend "cuda" then
+                 "reference": every request retires, pages are demoted
+                 and read back from the slow pool, B1-B5 launch, the
+                 legs' tokens are bit-equal and their tier states equal
+                 or parted only at an msc_score near-tie; the
+                 paged_attention kernel on the live pools of one layer
   3. parity   -- the engine at paper_tier_config(scale=1) on one op
                  stream: backend "cuda" on the card vs "reference" on the
                  card and on the CPU; state, counters and per-op results
@@ -84,10 +98,35 @@ EMBED_TOKENS, EMBED_STEPS = 2048, 32
 # long enough to pass the rate limiter's thrash regime (batch 24 on) and
 # the first tie the two scorers break apart (batch 38; PERF.md).
 EMBED_DIAG_TOKENS, EMBED_DIAG_STEPS = 4096, 39
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
+# The model phases: phi4-mini-3.8b at its published width (src/repro/
+# configs/phi4_mini_3_8b.py), float32 weights from MODEL_SEED (15.3 GB).
+MODEL = "phi4-mini-3.8b"
+MODEL_SEED, PREFILL_SEED, SERVE_SEED = 13, 14, 15
+PREFILL_BATCH, PREFILL_SEQ = 2, 2048
+# A flip of the argmax between the backends counts as a near-tie when the
+# reference's top-two logit gap is below this (logits ~1 in magnitude;
+# the backends differ only in the attention's summation order).
+PREFILL_TIE = 1e-3
+# flash_attention's kernel shapes [B, Hq, Hkv, S, D]: phi4-mini's prefill
+# (the prefill phase's) and gemma3-1b's (head dim 256, 5:1 local layers
+# of window 512; src/repro/configs/gemma3_1b.py)
+PHI4_ATTN, GEMMA3_ATTN = (2, 24, 8, 2048, 128), (1, 4, 1, 4096, 256)
+# Serving: two waves of requests through the 16 slots of serve_kv_config
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 24, 256, 32
+SERVE_TRACE_AT, SERVE_TRACE_TICKS = 100, 4   # profiled ticks of the cuda leg
+SERVE_B6_AT = 200              # tick whose live pools B6 is checked on
 
 
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line and append it to chiprun_out/smoke.jsonl, so
+    every phase's line survives where only the end of the output is
+    kept."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    OUT.mkdir(exist_ok=True)
+    with open(OUT / "smoke.jsonl", "a") as f:
+        f.write(line + "\n")
 
 
 def smi_line() -> str:
@@ -526,7 +565,7 @@ def _digest(tier) -> dict:
     by position (int64, wrapping).  Compares full-size states without
     holding two of them."""
     import torch
-    out = {}
+    names, sums = [], []
     for name, x in _leaves(tier):
         flat = _bits(x.reshape(-1))
         s = torch.zeros(2, dtype=torch.int64, device=x.device)
@@ -535,8 +574,10 @@ def _digest(tier) -> dict:
             pos = torch.arange(a, a + w.numel(), device=w.device) \
                 % 65521 + 1
             s += torch.stack([w.sum(), (w * pos).sum()])
-        out[name] = tuple(s.tolist())
-    return out
+        names.append(name)
+        sums.append(s)
+    # one host read for the whole state
+    return {n: tuple(v) for n, v in zip(names, torch.stack(sums).tolist())}
 
 
 def _same_run(dk, rk, dr, rr) -> dict:
@@ -987,6 +1028,425 @@ def embed_phase(steps: int = EMBED_STEPS, tokens: int = EMBED_TOKENS,
     return out
 
 
+# ------------------------------------------------------------ phase 6
+
+def _visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks of ``attention_ref`` keep."""
+    import numpy as np
+    qpos = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(sq)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def check_flash_attention(rng) -> dict:
+    """B7 against its plain version (``attention_ref``) on the card at
+    phi4-mini's prefill shape (f32 and bf16, causal) and gemma3-1b's
+    (head dim 256, window 512 and global), atol 2e-5 in f32 and 2e-2 in
+    bf16 (tests/test_kernels.py:28); the library call is
+    ``scaled_dot_product_attention`` with the same mask and GQA.  Bound:
+    the larger of q, k, v and o moved once at HBM_BYTES_PER_S and
+    4 * B * Hq * D FLOPs per visible pair at the dtype's peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    dev = torch.device("cuda")
+    shapes = []
+    for tag, (b, hq, hkv, s, d), window in (
+            ("phi4_prefill", PHI4_ATTN, -1),
+            ("gemma3_local", GEMMA3_ATTN, 512),
+            ("gemma3_global", GEMMA3_ATTN, -1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(dev).manual_seed(int(rng.integers(1 << 30)))
+            q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
+            k = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
+            got = ops.flash_attention(q, k, v, causal=True, window=window)
+            want = attention_ref(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            if not err <= tol:
+                raise AssertionError(f"flash_attention {tag} {dtype}: max abs"
+                                     f" err {err} > {tol}")
+            del got, want
+            pos = torch.arange(s, device=dev)
+            mask = pos[None, :] <= pos[:, None]
+            if window > 0:
+                mask &= pos[None, :] > pos[:, None] - window
+            lib = (lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)) if window < 0 \
+                else (lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True))
+            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                     window=window), 5, 1)
+            plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                     window=window), 2, 1)
+            lib_ms = cuda_ms(lib, 5, 1)
+            pairs = _visible_pairs(s, s, True, window)
+            flops = 4 * b * hq * d * pairs
+            nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+            peak = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+            b_bytes, b_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
+            shapes.append({
+                "tag": tag, "dtype": str(dtype).split(".")[1],
+                "q": [b, hq, s, d], "kv": [b, hkv, s, d], "window": window,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": max(b_bytes, b_ops),
+                "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                "tflops": flops / ms / 1e9})
+            del q, k, v, mask
+            torch.cuda.empty_cache()
+    main = shapes[0]     # phi4 prefill, float32: the prefill phase's shape
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:76",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+            "shapes": shapes}
+
+
+def prefill_phase(params, cfg, seed: int = PREFILL_SEED,
+                  device=None) -> dict:
+    """phi4-mini-3.8b's prefill forward at full width on ``params``:
+    ``forward`` and ``loss_fn`` on backend "cuda" (B7 in every layer) and
+    "reference" (the masked softmax), tokens [PREFILL_BATCH, PREFILL_SEQ]
+    from ``seed``.  The argmax must agree at >= 99.9% of positions and
+    every disagreement must be a near-tie (the reference's top-two gap
+    below PREFILL_TIE)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import model
+    dev = torch.device(device or "cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    n_tok = tokens.numel()
+    out = {"phase": "prefill", "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "tokens": list(tokens.shape),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in _param_leaves(params)) / 1e9}
+    logits = {}
+    for backend in ("cuda", "reference"):
+        torch.cuda.reset_peak_memory_stats()
+        # loss_fn first: it also warms the backend's kernels and the
+        # allocator up for the timed forward
+        t0 = time.time()
+        loss = float(model.loss_fn(cfg, params, batch, backend=backend))
+        t_loss = time.time() - t0
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        lg, _ = model.forward(cfg, params, batch, backend=backend)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = kernels.LAUNCHES["flash_attention"]
+        out[backend] = {
+            "forward_s": dt, "tokens_per_s": n_tok / dt,
+            "loss_fn_s": t_loss, "loss": loss,
+            "flash_attention_launches_per_forward": launches,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30,
+            "profiled_forward": _profiled(
+                lambda: model.forward(cfg, params, batch, backend=backend),
+                f"profile_prefill_{backend}.txt")}
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"prefill ({backend}): non-finite logits")
+        logits[backend] = lg
+        del lg
+    if out["cuda"]["flash_attention_launches_per_forward"] != cfg.n_layers \
+            or out["reference"]["flash_attention_launches_per_forward"]:
+        raise AssertionError("prefill: flash_attention did not launch once "
+                             "per layer on backend cuda (and never on "
+                             "reference)")
+    a, r = logits["cuda"], logits["reference"]
+    diff = float((a - r).abs().max())
+    am, rm = a.argmax(-1), r.argmax(-1)
+    top2 = torch.topk(r, 2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1])[am != rm]
+    agree = float((am == rm).float().mean())
+    out.update({"logits_max_abs_diff": diff, "argmax_agree": agree,
+                "argmax_flips": int(gap.numel()),
+                "flip_max_gap": float(gap.max()) if gap.numel() else None,
+                "tie_bound": PREFILL_TIE,
+                "loss_abs_diff": abs(out["cuda"]["loss"]
+                                     - out["reference"]["loss"])})
+    del logits, a, r, top2
+    torch.cuda.empty_cache()
+    if agree < 0.999 or (gap.numel() and float(gap.max()) >= PREFILL_TIE):
+        emit(out)
+        raise AssertionError("prefill: the backends' argmax differ beyond "
+                             "near-ties")
+    return out
+
+
+def _profiled(fn, table: str) -> dict:
+    """One call of ``fn`` under the profiler: its wall time, the device
+    busy share and the device time by kernel (top 8; the whole table to
+    chiprun_out/``table``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    ka = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    kern = [e for e in ka if not e.key.startswith("aten::")
+            and not e.key.startswith("cuda")]
+    OUT.mkdir(exist_ok=True)
+    (OUT / table).write_text(ka.table(sort_by="self_cuda_time_total",
+                                      row_limit=60))
+    return {"window_s": window,
+            "device_busy_share": sum(map(dev_us, kern)) / 1e6 / window,
+            "top_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in
+                       sorted(kern, key=dev_us, reverse=True)[:8]]}
+
+
+def _param_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _param_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _param_leaves(v)
+    else:
+        yield tree
+
+
+# ------------------------------------------------------------ phase 7
+
+def serve_kv_config(cfg):
+    from repro_torch.core.paged_kv import PagedKVConfig
+    return PagedKVConfig(
+        n_layers=cfg.n_layers, kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        page_tokens=16, fast_pages=128, slow_pages=2048, max_seqs=16,
+        max_pages_per_seq=20, topk_pages=16, recent_pages=2,
+        dtype="bfloat16")
+
+
+def _check_paged_attention(eng, seed: int) -> dict:
+    """B6 on the live fast pool of one layer of a running engine, with the
+    block tables ``select_pages`` gives for a query drawn from ``seed``
+    (pages in the slow pool are absent, -1): the entry point
+    ``decode_attention`` once (counted), then held against its plain
+    version (atol 2e-5: float32 queries, bf16 pages, float32 sums) and
+    timed.  Bound: the bytes of the selected pages' K and V rows, the
+    queries, tables, mask and output, at HBM_BYTES_PER_S."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import paged_kv
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    cfg, mcfg = eng.cfg, eng.mcfg
+    dev = eng.device
+    kv = eng.est.payload._replace(tier=eng.est.tier)
+    gen = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn((cfg.n_layers, cfg.max_seqs, mcfg.n_heads, cfg.head_dim),
+                    generator=gen, device=dev)
+    seq_ids = torch.arange(cfg.max_seqs, dtype=torch.int32, device=dev)
+    pidx, pmask = paged_kv.select_pages(kv, cfg, seq_ids, q)
+    slot, found = paged_kv.fast_slots_of(
+        kv, paged_kv.page_key(cfg, seq_ids[:, None], pidx).reshape(-1))
+    bt = torch.where(found.view(pidx.shape) & pmask, slot.view(pidx.shape),
+                     -1).to(torch.int32)
+    t = cfg.page_tokens
+    pos = pidx[..., None] * t + torch.arange(t, device=dev)
+    tm = pos < kv.seq_len[:, None, None]
+    layer = cfg.n_layers - 1
+    kp, vp, ql = kv.k_fast[layer], kv.v_fast[layer], q[layer]
+    before = kernels.LAUNCHES["paged_attention"]
+    got = ops.decode_attention(ql, kp, vp, bt, tm, backend="cuda")
+    launches = kernels.LAUNCHES["paged_attention"] - before
+    want = paged_attention_ref(ql, kp, vp, bt, tm)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= 2e-5:
+        raise AssertionError(f"paged_attention: max abs err {err} > 2e-5")
+    def timed(bt, tm):
+        """(wrapper ms, bare launch ms, plain ms, bound ms)."""
+        lib, out = ops._lib(), torch.empty_like(ql)
+        stream = torch.cuda.current_stream().cuda_stream
+        launch = lambda: lib.paged_attention_launch(
+            ql.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
+            tm.data_ptr(), out.data_ptr(), 0, 1, ql.shape[0], ql.shape[1],
+            cfg.kv_heads, cfg.head_dim, kp.shape[0], t, bt.shape[1],
+            kp.stride(0), cfg.head_dim ** -0.5, stream)
+        n_pages = int((bt >= 0).sum())
+        nbytes = (n_pages * 2 * t * cfg.kv_heads * cfg.head_dim
+                  * kp.element_size() + 2 * ql.numel() * 4 + bt.numel() * 4
+                  + tm.numel())
+        return (cuda_ms(lambda: ops.paged_attention(ql, kp, vp, bt, tm), 50),
+                cuda_ms(launch, 200),
+                cuda_ms(lambda: paged_attention_ref(ql, kp, vp, bt, tm), 20),
+                1e3 * nbytes / HBM_BYTES_PER_S, n_pages)
+
+    ms, launch_ms, plain_ms, bound_ms, n_pages = timed(bt, tm)
+    # the same launch with every table entry a page of the fast pool and
+    # every token visible: the kernel's bandwidth at the full K pages
+    full_bt = torch.argsort(torch.rand((bt.shape[0], cfg.fast_pages),
+                                       generator=gen, device=dev), dim=1)[
+        :, :bt.shape[1]].to(torch.int32)
+    full_tm = torch.ones_like(tm)
+    err_full = float((ops.paged_attention(ql, kp, vp, full_bt, full_tm)
+                      - paged_attention_ref(ql, kp, vp, full_bt, full_tm))
+                     .abs().max())
+    if not err_full <= 2e-5:
+        raise AssertionError(f"paged_attention (full table): max abs err "
+                             f"{err_full} > 2e-5")
+    f_ms, f_launch, f_plain, f_bound, f_pages = timed(full_bt, full_tm)
+    # the comparison's launches are not the entry point's
+    kernels.LAUNCHES["paged_attention"] = before + launches
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/"
+                        "paged_attention.py:71",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "launch_only_ms": launch_ms,
+            "shape": {"q": list(ql.shape), "pool": list(kp.shape),
+                      "pool_dtype": "bfloat16", "block_table": list(bt.shape),
+                      "pages_present": n_pages, "layer": layer,
+                      "tick": eng.stats["steps"]},
+            "full_table": {"pages_present": f_pages, "max_abs_err": err_full,
+                           "ms": f_ms, "launch_only_ms": f_launch,
+                           "plain_ms": f_plain, "bound_ms": f_bound}}
+
+
+def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
+    """``ServeEngine`` at phi4-mini-3.8b's full width over the tiered paged
+    KV cache (``serve_kv_config``: a 256 MiB bf16 fast pool that holds
+    fewer pages than the live ones, so tiering runs; a 4 GiB slow pool):
+    SERVE_REQUESTS requests of SERVE_PROMPT prompt tokens from ``seed``
+    and SERVE_NEW new tokens each, through max_seqs slots, on backend
+    "cuda" then "reference".  Every request must retire with SERVE_NEW
+    tokens, pages must be demoted and read from the slow pool, B1-B5
+    must launch on the "cuda" leg, the legs' tokens must be bit-equal,
+    and their tier states equal or parted only at an msc_score near-tie
+    (``_explain_divergence``).  Returns (phase line, B6 kernels row)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.serve.engine import Request, ServeEngine
+    kv_cfg = serve_kv_config(cfg)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT).tolist()
+               for _ in range(SERVE_REQUESTS)]
+    out = {"phase": "serve", "model": cfg.name, "kv": kv_cfg._asdict(),
+           "requests": SERVE_REQUESTS, "prompt_tokens": SERVE_PROMPT,
+           "max_new": SERVE_NEW,
+           "fast_pool_mib": 2 * kv_cfg.n_layers * kv_cfg.fast_pages
+           * kv_cfg.page_tokens * kv_cfg.kv_heads * kv_cfg.head_dim * 2
+           / 2**20,
+           "slow_pool_gib": 2 * kv_cfg.n_layers * kv_cfg.slow_pages
+           * kv_cfg.page_tokens * kv_cfg.kv_heads * kv_cfg.head_dim * 2
+           / 2**30}
+    tokens, per_step, digests, ends, log = {}, {}, {}, {}, []
+    b6 = None
+    for leg in ("cuda", "reference"):
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(cfg, kv_cfg, params, seed=seed, backend=leg,
+                          device=device)
+        reqs = [Request(rid=i, prompt=p, max_new=SERVE_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_launches()
+        engine.HOST_READS.n = 0
+        walls, comps, digs = [], [], []
+        busy = None
+        scoring = _score_log(log) if leg == "cuda" else \
+            contextlib.nullcontext()
+        with scoring:
+            while eng.queue or eng.active:
+                tick = eng.stats["steps"]
+                if leg == "cuda" and tick == SERVE_TRACE_AT:
+                    def traced():
+                        for _ in range(SERVE_TRACE_TICKS):
+                            eng.step()
+                            comps.append(int(eng.est.tier.ctr.compactions))
+                            digs.append(_digest(eng.est.tier))
+                    h0 = engine.HOST_READS.n
+                    busy = _profiled(traced, "profile_serve.txt")
+                    busy.update(ticks=SERVE_TRACE_TICKS,
+                                host_reads=engine.HOST_READS.n - h0)
+                    continue
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                comps.append(int(eng.est.tier.ctr.compactions))
+                digs.append(_digest(eng.est.tier))
+                if leg == "cuda" and tick == SERVE_B6_AT:
+                    b6 = _check_paged_attention(eng, seed)
+        c = eng.counters
+        w = np.asarray(walls) * 1e3
+        n_proc = sum(len(r.prompt) + len(r.out) for r in reqs)
+        n_gen = sum(len(r.out) for r in reqs)
+        ticks = eng.stats["steps"]
+        wall = w.sum() / 1e3 + (busy["window_s"] if busy else 0.0)
+        out[leg] = {
+            "ticks": ticks, "wall_s": wall,
+            "tokens_per_s": n_proc / wall, "generated_per_s": n_gen / wall,
+            "tick_ms_p50": float(np.percentile(w, 50)),
+            "tick_ms_p90": float(np.percentile(w, 90)),
+            "tick_ms_max": float(w.max()),
+            "host_reads_per_tick": engine.HOST_READS.n / ticks,
+            "compactions": c["compactions"], "demoted": c["demoted"],
+            "promoted": c["promoted"], "hits_fast": c["hits_fast"],
+            "hits_slow": c["hits_slow"],
+            "retired": eng.stats["retired"],
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30,
+            "launches": dict(kernels.LAUNCHES)}
+        if busy:
+            out[leg]["traced"] = busy
+        tokens[leg] = [list(r.out) for r in reqs]
+        per_step[leg], digests[leg] = comps, digs
+        ends[leg] = _digest(eng.est.tier)
+        print(f"# serve {leg}: {ticks} ticks {wall:.1f}s, "
+              f"{c['compactions']} compactions", file=sys.stderr, flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    fails = []
+    cu = out["cuda"]
+    if any(len(t) != SERVE_NEW for t in tokens["cuda"]) \
+            or cu["retired"] != SERVE_REQUESTS:
+        fails.append("a request did not retire with max_new tokens")
+    if cu["demoted"] <= 0 or cu["hits_slow"] <= 0:
+        fails.append("no page was demoted and read from the slow pool")
+    for name in ("clock_update", "msc_score", "select_gather_rows",
+                 "scatter_rows", "gather_rows"):
+        if cu["launches"][name] <= 0:
+            fails.append(f"kernel {name} never launched")
+    if tokens["cuda"] != tokens["reference"]:
+        fails.append("the legs' generated tokens differ")
+    if b6 is None:
+        fails.append("the paged_attention check did not run")
+    out["paged_attention"] = b6
+    out["tokens_equal"] = tokens["cuda"] == tokens["reference"]
+    out["tier_leaves_equal"] = ends["cuda"] == ends["reference"]
+    why = _explain_divergence(log, per_step["cuda"], digests)
+    out["divergence"] = why
+    if not why["explained"]:
+        fails.append("the legs' tier states part where no msc_score "
+                     "near-tie accounts for it")
+    out["ok"] = not fails
+    if fails:
+        emit(out)
+        raise AssertionError("serve: " + "; ".join(fails))
+    return out, b6
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -1003,6 +1463,8 @@ def main() -> int:
     from repro_torch.configs.prismdb_kv import paper_tier_config
     from repro_torch.kernels import build
     t_start = time.time()
+    OUT.mkdir(exist_ok=True)
+    (OUT / "smoke.jsonl").write_text("")
     smi = smi_line()
     t0 = time.time()
     report = build.build_all()
@@ -1021,7 +1483,26 @@ def main() -> int:
                                  fast_rows=EMBED_FAST_ROWS)
     rows = [check_clock_update(full, BATCH, rng), check_msc_score(full, rng)]
     rows += check_tier_compact(full, embed_cfg, rng)
+    rows.append(check_flash_attention(rng))
     emit({"phase": "kernels", "rows": rows})
+
+    # the model phases: phi4-mini-3.8b at full width, prefill and serving
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model
+    mcfg = get_arch(MODEL)
+    t0 = time.time()
+    params = model.init_params(
+        mcfg, torch.Generator("cuda").manual_seed(MODEL_SEED))
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    pre = prefill_phase(params, mcfg)
+    pre["init_params_s"] = t_init
+    emit(pre)
+    srv, b6 = serve_phase(params, mcfg)
+    emit(srv)
+    rows.append(b6)
+    del params
+    torch.cuda.empty_cache()
     line, base = engine_parity(BATCH)
     emit(line)
     line, _ = engine_parity(BATCH, quantum=DRAIN_Q, base=base)
@@ -1071,11 +1552,16 @@ def main() -> int:
     emit(embed_phase(steps=EMBED_DIAG_STEPS, tokens=EMBED_DIAG_TOKENS,
                      diagnose=True))
     # launches: each kernel's count in the full-size run of its path
+    # (B7: per "cuda" forward of the prefill phase; B6: its entry point's
+    # call on the serve phase's live pools)
     where = {"clock_update": full_res, "msc_score": full_res,
              "select_gather_rows": fq_res, "scatter_rows": fq_res,
              "gather_rows": emb["cuda"]}
     for r in rows:
-        r["launches"] = where[r["name"]]["launches"][r["name"]]
+        if r["name"] == "flash_attention":
+            r["launches"] = pre["cuda"]["flash_attention_launches_per_forward"]
+        elif r["name"] != "paged_attention":
+            r["launches"] = where[r["name"]]["launches"][r["name"]]
     emit({"phase": "done", "elapsed_s": time.time() - t_start})
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

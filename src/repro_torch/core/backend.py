@@ -1,10 +1,11 @@
 """Static backend dispatch and device resolution for the port.
 
-The kernelized hot-path primitives -- the CLOCK tracker update (§4.3),
-approx-MSC candidate scoring (§5) and the tier_compact row movers of the
-quantized drain and the payload mirrors -- each exist twice: a plain
-PyTorch version and a hand-written CUDA kernel under
-``repro_torch.kernels``.  This module decides which one runs.
+The kernelized primitives -- the CLOCK tracker update (§4.3),
+approx-MSC candidate scoring (§5), the tier_compact row movers of the
+quantized drain and the payload mirrors, and the model's flash and paged
+decode attention -- each exist twice: a plain PyTorch version and a
+hand-written CUDA kernel under ``repro_torch.kernels``.  This module
+decides which one runs.
 
 * ``"reference"`` runs the plain PyTorch version on any device.
 * ``"cuda"`` launches the kernel for CUDA tensors.  The plain version is

@@ -109,6 +109,16 @@ def check_supported(cfg: EngineConfig) -> None:
             "compact_boundary / _deep_tick)")
 
 
+def dealias(tree):
+    """A copy of ``tree`` with every tensor leaf in its own buffer (the
+    engine updates its state in place, so a held view would change)."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[dealias(x) for x in tree])
+    if isinstance(tree, tuple):
+        return tuple(dealias(x) for x in tree)
+    return tree.clone() if torch.is_tensor(tree) else tree
+
+
 def init(cfg: EngineConfig, rng: torch.Tensor, payload: Any = (),
          tier: TierState | None = None, device=None) -> EngineState:
     """A fresh engine state on ``device`` (None: the card; raises without
@@ -388,7 +398,9 @@ def state_from_numpy(tree, cfg: EngineConfig, device=None,
     blooms (uint32 -> int32 bit pattern), tracker, buckets, counters,
     policy, obs, the in-flight carry, and the rng key words (uint32 ->
     int64).  A payload's NamedTuple classes come in ``payload_types``
-    (the embedding store's: ``(embedding_store.EmbedStoreState,)``).
+    (the embedding store's: ``(embedding_store.EmbedStoreState,)``, the
+    paged-KV cache's: ``(paged_kv.PagedKVState,)``; bfloat16 page pools
+    come across bit for bit).
     Copies every leaf, so the engine's in-place updates never reach the
     source."""
     check_supported(cfg)
@@ -411,6 +423,9 @@ def state_from_numpy(tree, cfg: EngineConfig, device=None,
             return torch.from_numpy(a.astype(np.int64))   # host key words
         if a.dtype == np.uint32:
             a = a.view(np.int32)
+        if a.dtype.name == "bfloat16":    # ml_dtypes' bfloat16 (page pools)
+            return torch.from_numpy(a.view(np.int16).copy()).view(
+                torch.bfloat16).to(dev)
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
     return conv(tree)
@@ -426,6 +441,10 @@ def state_to_numpy(state: EngineState):
             return type(x)(*[conv(getattr(x, f), f) for f in x._fields])
         if isinstance(x, tuple):
             return tuple(conv(v, field) for v in x)
+        if x.dtype == torch.bfloat16:
+            import ml_dtypes    # the JAX package's bfloat16 numpy dtype
+            return x.detach().cpu().view(torch.int16).numpy().view(
+                ml_dtypes.bfloat16)
         a = x.detach().cpu().numpy()
         if field == "rng":
             return a.astype(np.uint32)

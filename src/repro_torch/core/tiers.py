@@ -329,6 +329,32 @@ def apply_point_ops(state: TierState, cfg: TierConfig, keys: torch.Tensor,
     return state, out_vals, found, source
 
 
+def put_batch(state: TierState, cfg: TierConfig, keys: torch.Tensor,
+              vals: torch.Tensor, valid: torch.Tensor, *,
+              backend: str = "reference") -> TierState:
+    """Insert/update a batch (JAX ``tiers.put_batch``: the put-only form
+    of ``apply_point_ops``).  ``backend`` routes the tracker update (B1 on
+    backend "cuda"); the JAX package's wrapper always takes its plain
+    tracker, and the kernel is bit-exact to it."""
+    state, _, _, _ = apply_point_ops(state, cfg, keys, vals, valid,
+                                     is_put=True, is_get=False, is_del=False,
+                                     backend=backend)
+    return state
+
+
+def get_batch(state: TierState, cfg: TierConfig, keys: torch.Tensor,
+              valid: torch.Tensor, *, backend: str = "reference"
+              ) -> tuple[TierState, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """Returns (state', vals, found, source); source is the serving tier
+    (0 = fast slab, 1 = slow runs), -1 a miss.  ``backend`` as in
+    ``put_batch``."""
+    vals = torch.zeros((keys.shape[0], state.vals[0].shape[1]),
+                       dtype=state.vals[0].dtype, device=keys.device)
+    return apply_point_ops(state, cfg, keys, vals, valid, is_put=False,
+                           is_get=True, is_del=False, backend=backend)
+
+
 def consolidate_indexes(state: TierState) -> TierState:
     """Full-rebuild fallback: re-derive every sorted tier index."""
     idx = [build_sorted_index(k) for k in state.keys]

@@ -1,0 +1,120 @@
+"""Shared model building blocks: norms, RoPE, FFN and parameter init (the
+port's own copy of the JAX package's ``models/common.py``).
+
+Parameters are plain nested dicts of tensors in the JAX package's layouts
+(``wq`` [D, Hq, hd], ``wo`` [Hq, hd, D], ``w_gate`` [D, F], ...), so the
+tests can carry the JAX package's parameters across (``model.
+params_from_numpy``).  There are no logical-axis specs: the port runs on
+one device, with no mesh.  ``init_params`` draws from an explicit
+``torch.Generator`` with the JAX ``ParamFactory``'s shapes and scales;
+the draws are not ``jax.random``'s bits.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+# ------------------------------------------------------------------- init
+
+
+class ParamInit:
+    """Draws parameters on ``device`` from ``generator`` (which must live
+    on that device): dense weights N(0, 1) / sqrt(fan_in) unless a scale
+    is given, embeddings N(0, 1) * 0.02, norms one, biases zero."""
+
+    def __init__(self, generator: torch.Generator, device: torch.device,
+                 dtype=torch.float32):
+        self.gen, self.device, self.dtype = generator, device, dtype
+
+    def _normal(self, shape, scale: float) -> torch.Tensor:
+        w = torch.randn(shape, generator=self.gen, device=self.device,
+                        dtype=self.dtype)
+        return w.mul_(scale)
+
+    def dense(self, shape, scale: float | None = None) -> torch.Tensor:
+        return self._normal(shape, scale if scale is not None
+                            else 1.0 / math.sqrt(shape[0]))
+
+    def embed(self, shape, scale: float = 0.02) -> torch.Tensor:
+        return self._normal(shape, scale)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, device=self.device, dtype=self.dtype)
+
+    def ones(self, shape) -> torch.Tensor:
+        return torch.ones(shape, device=self.device, dtype=self.dtype)
+
+
+def init_ffn(pi: ParamInit, d_model: int, d_ff: int, kind: str) -> dict:
+    if kind == "swiglu":
+        return {"w_gate": pi.dense((d_model, d_ff)),
+                "w_up": pi.dense((d_model, d_ff)),
+                "w_down": pi.dense((d_ff, d_model))}
+    return {"w_up": pi.dense((d_model, d_ff)), "b_up": pi.zeros((d_ff,)),
+            "w_down": pi.dense((d_ff, d_model)),
+            "b_down": pi.zeros((d_model,))}
+
+
+def init_norm(pi: ParamInit, d: int, kind: str) -> dict:
+    if kind == "rms":
+        return {"w": pi.ones((d,))}
+    return {"w": pi.ones((d,)), "b": pi.zeros((d,))}
+
+
+# ------------------------------------------------------------------- norms
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * weight.to(torch.float32)).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
+def norm(params, x, kind: str, eps: float):
+    if kind == "rms":
+        return rms_norm(x, params["w"], eps)
+    return layer_norm(x, params["w"], params["b"], eps)
+
+
+# -------------------------------------------------------------------- rope
+
+def rope_freqs(d_head: int, theta: float = 10000.0, device=None):
+    exp = torch.arange(0, d_head, 2, dtype=torch.float32,
+                       device=device) / d_head
+    return 1.0 / (theta ** exp)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: [B, H, S, D]; positions: [B, S] (int).  Rotates the pairs
+    (even, odd)."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                       # [D/2]
+    ang = positions[:, None, :, None].to(torch.float32) * inv  # [B,1,S,D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# --------------------------------------------------------------------- ffn
+
+def ffn(params, x, kind: str, act: str = "silu"):
+    actf = F.silu if act == "silu" else (
+        lambda h: F.gelu(h, approximate="tanh"))   # jax.nn.gelu's default
+    if kind == "swiglu":
+        h = actf(x @ params["w_gate"]) * (x @ params["w_up"])
+        return h @ params["w_down"]
+    h = actf(x @ params["w_up"] + params["b_up"])
+    return h @ params["w_down"] + params["b_down"]

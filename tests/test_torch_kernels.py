@@ -1,11 +1,14 @@
-"""Kernels B1 (clock_update), B2 (msc_score) and B3-B5 (the tier_compact
-row movers select_gather_rows, scatter_rows, gather_rows) of the port.
+"""Kernels B1 (clock_update), B2 (msc_score), B3-B5 (the tier_compact
+row movers select_gather_rows, scatter_rows, gather_rows), B6
+(paged_attention) and B7 (flash_attention) of the port.
 
 On the CPU: each wrapper takes its plain PyTorch version, held against
 the JAX package's kernel wrappers (``backend="reference"`` and the Pallas
 kernel in interpret mode) -- B1 bit-exact, B2 within rtol 1e-5 (the
 tolerance of tests/test_kernels.py) with equal argmax; the movers' plain
-versions are held to JAX in tests/test_torch_mirror.py.
+versions are held to JAX in tests/test_torch_mirror.py; B6's and B7's
+plain versions within atol 2e-5 in float32 and 2e-2 in bfloat16 of the
+Pallas kernels in interpret mode (tests/test_kernels.py:28,51).
 On a card (marker ``cuda``, skipped without one): each CUDA kernel held
 against its plain version on the same inputs.  The machine with the card
 has no JAX, so the JAX package is imported only inside the CPU tests; run
@@ -331,3 +334,184 @@ def test_mover_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         ops.scatter_rows(pool, idx, torch.zeros((3, 4)), flag)
     assert kernels.LAUNCHES == before
+
+
+# ------------------------------------------------ flash / paged attention
+
+FLASH_SHAPES = [            # tests/test_kernels.py:12-18
+    (2, 4, 2, 64, 64, 32, True, -1),
+    (1, 8, 2, 33, 33, 64, True, -1),
+    (2, 2, 2, 17, 80, 16, True, 16),
+    (1, 4, 1, 5, 5, 128, False, -1),
+    (1, 4, 4, 48, 48, 8, True, 8),
+]
+PAGED_SHAPES = [            # tests/test_kernels.py:36-39
+    (2, 4, 2, 32, 16, 8, 4),
+    (1, 8, 8, 64, 8, 4, 3),
+    (3, 6, 2, 128, 32, 16, 8),
+]
+
+
+def _qkv(rng, b, hq, hkv, sq, sk, d):
+    return (rng.normal(size=(b, hq, sq, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,win", FLASH_SHAPES)
+def test_flash_attention_plain_vs_jax(b, hq, hkv, sq, sk, d, causal, win,
+                                      dtype):
+    """``mha`` on backend "cuda" with CPU tensors (B7's plain version) vs
+    the JAX package's ``mha(backend="pallas")`` in interpret mode on the
+    same inputs (bf16 inputs rounded the same way on both sides)."""
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.ops import mha as j_mha
+    from repro_torch.kernels.flash_attention.ops import mha
+    rng = np.random.default_rng(b * 1000 + sq + d)
+    arrs = _qkv(rng, b, hq, hkv, sq, sk, d)
+    jdt = getattr(jnp, dtype)
+    want = j_mha(*(jnp.asarray(a, jdt) for a in arrs), causal=causal,
+                 window=win, backend="pallas", block_q=32, block_k=32)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = mha(*(t(a).to(getattr(torch, dtype)) for a in arrs),
+              causal=causal, window=win, backend="cuda")
+    assert kernels.LAUNCHES["flash_attention"] == before   # plain on CPU
+    assert got.dtype == getattr(torch, dtype)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol)
+
+
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,d,P,T,K", PAGED_SHAPES)
+def test_paged_attention_plain_vs_jax(b, hq, hkv, d, P, T, K, pool_dtype):
+    """``decode_attention`` on backend "cuda" with CPU tensors (B6's
+    plain version) vs the JAX package's ``decode_attention(backend=
+    "pallas")`` in interpret mode (float32 queries; bf16 pools are
+    widened alike on both sides: atol 2e-5)."""
+    import jax.numpy as jnp
+    from repro.kernels.paged_attention.ops import decode_attention as j_dec
+    from repro_torch.kernels.paged_attention.ops import decode_attention
+    rng = np.random.default_rng(P * 100 + K)
+    q = rng.normal(size=(b, hq, d)).astype(np.float32)
+    kp = rng.normal(size=(P, T, hkv, d)).astype(np.float32)
+    vp = rng.normal(size=(P, T, hkv, d)).astype(np.float32)
+    bt = rng.integers(-1, P, size=(b, K)).astype(np.int32)
+    tm = rng.random((b, K, T)) > 0.2
+    bt[:, 0], tm[:, 0, 0] = 0, True
+    jdt = getattr(jnp, pool_dtype)
+    want = j_dec(jnp.asarray(q), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+                 jnp.asarray(bt), jnp.asarray(tm), backend="pallas")
+    tdt = getattr(torch, pool_dtype)
+    before = kernels.LAUNCHES["paged_attention"]
+    got = decode_attention(t(q), t(kp).to(tdt), t(vp).to(tdt), t(bt), t(tm),
+                           backend="cuda")
+    assert kernels.LAUNCHES["paged_attention"] == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_paged_attention_plain_sees_nothing_gives_zero():
+    """A sequence whose pages are all absent or masked gives 0, as the
+    JAX package's plain version does."""
+    import jax.numpy as jnp
+    from repro.kernels.paged_attention.ref import paged_attention_ref as j_ref
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(2, 4, 16)).astype(np.float32)
+    kp = rng.normal(size=(6, 4, 2, 16)).astype(np.float32)
+    bt = np.array([[-1, -1, -1], [2, -1, 5]], np.int32)
+    tm = np.ones((2, 3, 4), bool)
+    tm[1] = False
+    got = paged_attention_ref(t(q), t(kp), t(kp), t(bt), t(tm)).numpy()
+    want = np.asarray(j_ref(*map(jnp.asarray, (q, kp, kp, bt, tm))))
+    assert np.all(got == 0) and np.all(want == 0)
+
+
+def test_attention_wrappers_refuse_cpu_tensors():
+    """The flash_attention and paged_attention launch wrappers validate
+    before they build or launch: CPU tensors are refused."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    before = dict(kernels.LAUNCHES)
+    x = torch.zeros((1, 2, 4, 8))
+    with pytest.raises(ValueError):
+        flash_attention(x, x, x)
+    with pytest.raises(ValueError):
+        paged_attention(torch.zeros((1, 2, 8)), torch.zeros((3, 4, 2, 8)),
+                        torch.zeros((3, 4, 2, 8)),
+                        torch.zeros((1, 2), dtype=torch.int32),
+                        torch.ones((1, 2, 4), dtype=torch.bool))
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,win", FLASH_SHAPES + [
+    (1, 4, 1, 300, 300, 256, True, 64),      # gemma3: head dim 256, local
+    (1, 4, 1, 130, 130, 256, True, -1),
+    (2, 6, 2, 70, 70, 80, True, 33),         # head dim below its template
+    (1, 3, 1, 9, 40, 128, True, 4),          # right-aligned short queries
+])
+def test_flash_attention_kernel_on_card(b, hq, hkv, sq, sk, d, causal, win,
+                                        dtype):
+    """B7 against its plain version on the card (atol 2e-5 in float32,
+    2e-2 in bfloat16), contiguous inputs and the model's transposed
+    projections (strided, no copy)."""
+    _needs_card()
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(b * 1000 + sq + d)
+    dt = getattr(torch, dtype)
+    q, k, v = (t(a).to("cuda", dt) for a in _qkv(rng, b, hq, hkv, sq, sk, d))
+    # the same values laid out [B, S, H, D] and viewed as [B, H, S, D]
+    qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    want = attention_ref(q, k, v, causal=causal, window=win)
+    n0 = kernels.LAUNCHES["flash_attention"]
+    for args in ((q, k, v), (qs, ks, vs)):
+        got = flash_attention(*args, causal=causal, window=win)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == "float32" else 2e-2
+        assert got.dtype == dt and got.shape == q.shape
+        assert float((got.float() - want.float()).abs().max()) <= tol
+    assert kernels.LAUNCHES["flash_attention"] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,d,P,T,K", PAGED_SHAPES + [
+    (16, 24, 8, 128, 128, 16, 16),           # the serve phase's shapes
+    (2, 8, 2, 256, 9, 5, 6)])
+def test_paged_attention_kernel_on_card(b, hq, hkv, d, P, T, K, pool_dtype,
+                                        q_dtype):
+    """B6 against its plain version on the card (atol 2e-5 for float32
+    queries, 2e-2 for bf16), on contiguous pools and on one layer of
+    slot-major [L, P, T, H, D] pools (pages L rows apart); a sequence
+    that sees nothing gives 0."""
+    _needs_card()
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    rng = np.random.default_rng(P * 100 + K)
+    pdt, qdt = getattr(torch, pool_dtype), getattr(torch, q_dtype)
+    q = t(rng.normal(size=(b, hq, d)).astype(np.float32)).to("cuda", qdt)
+    pools = t(rng.normal(size=(P, 3, 2, T, hkv, d)).astype(np.float32)) \
+        .to("cuda", pdt)
+    bt = rng.integers(-1, P, size=(b, K)).astype(np.int32)
+    tm = rng.random((b, K, T)) > 0.2
+    bt[-1] = -1                                # sees nothing
+    bt = t(bt).cuda()
+    tm = t(tm).cuda()
+    n0 = kernels.LAUNCHES["paged_attention"]
+    for kp, vp in ((pools[:, 0, 0].contiguous(), pools[:, 0, 1].contiguous()),
+                   (pools[:, 1, 0], pools[:, 1, 1])):
+        want = paged_attention_ref(q, kp, vp, bt, tm)
+        got = paged_attention(q, kp, vp, bt, tm)
+        torch.cuda.synchronize()
+        tol = 2e-5 if q_dtype == "float32" else 2e-2
+        assert got.dtype == qdt
+        assert float((got.float() - want.float()).abs().max()) <= tol
+        assert float(got[-1].float().abs().max()) == 0.0
+    assert kernels.LAUNCHES["paged_attention"] == n0 + 2
