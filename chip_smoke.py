@@ -10,7 +10,9 @@ Phases, each printed as one JSON line:
                  at the main paths' shapes (clock_update and the three
                  tier_compact movers bit-exact, msc_score rtol 1e-5 with
                  equal argmax; flash_attention at phi4-mini's prefill and
-                 gemma3-1b's shapes, atol 2e-5 f32 / 2e-2 bf16), with
+                 gemma3-1b's shapes, atol 2e-5 f32 / 2e-2 bf16;
+                 rwkv6_scan at rwkv6-7b's prefill shape and a ragged
+                 one, atol 1e-4), with
                  CUDA-event times, the plain version's and a library
                  call's where one computes the same function, and the
                  card's bound for the same work
@@ -26,6 +28,17 @@ Phases, each printed as one JSON line:
                  legs' tokens are bit-equal and their tier states equal
                  or parted only at an msc_score near-tie; the
                  paged_attention kernel on the live pools of one layer
+  2c. rwkv_prefill -- rwkv6-7b at full width (float32 weights from a
+                 seed): with u drawn non-zero, forward and loss_fn on
+                 backend "cuda" (the rwkv6_scan kernel once per layer)
+                 and "reference" (the plain scan), timed, and every
+                 layer's two outputs from the same input held within
+                 RWKV_LAYER_TOL (the decode form of time_mix too); with
+                 the published init (u zero), the argmax gate of prefill
+  2d. rwkv_decode -- the published-init weights through decode_step from
+                 a float32 cache: a teacher-forced prefix held against the
+                 "cuda" forward's logits at every position (the recurrent
+                 step against the kernel's scan), then greedy tokens
   3. parity   -- the engine at paper_tier_config(scale=1) on one op
                  stream: backend "cuda" on the card vs "reference" on the
                  card and on the CPU; state, counters and per-op results
@@ -106,7 +119,8 @@ MODEL_SEED, PREFILL_SEED, SERVE_SEED = 13, 14, 15
 PREFILL_BATCH, PREFILL_SEQ = 2, 2048
 # A flip of the argmax between the backends counts as a near-tie when the
 # reference's top-two logit gap is below this (logits ~1 in magnitude;
-# the backends differ only in the attention's summation order).
+# the backends differ only in the attention's, or the WKV scan's,
+# summation order).
 PREFILL_TIE = 1e-3
 # flash_attention's kernel shapes [B, Hq, Hkv, S, D]: phi4-mini's prefill
 # (the prefill phase's) and gemma3-1b's (head dim 256, 5:1 local layers
@@ -116,6 +130,24 @@ PHI4_ATTN, GEMMA3_ATTN = (2, 24, 8, 2048, 128), (1, 4, 1, 4096, 256)
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 24, 256, 32
 SERVE_TRACE_AT, SERVE_TRACE_TICKS = 100, 4   # profiled ticks of the cuda leg
 SERVE_B6_AT = 200              # tick whose live pools B6 is checked on
+# rwkv6-7b at its published width (src/repro/configs/rwkv6_7b.py,
+# arXiv:2404.05892: 32 layers, d 4,096, 64 heads of 64, channel mix
+# 14,336, vocab 65,536 untied), float32 weights from RWKV_SEED (30.6 GB),
+# u from RWKV_U_SEED; prefill of PREFILL_BATCH x PREFILL_SEQ tokens from
+# RWKV_TOKENS_SEED; decode: RWKV_FORCED teacher-forced tokens, then
+# RWKV_NEW greedy ones.
+RWKV_MODEL = "rwkv6-7b"
+RWKV_SEED, RWKV_U_SEED, RWKV_TOKENS_SEED = 16, 17, 18
+RWKV_FORCED, RWKV_NEW = 64, 32
+# Each layer's cuda and reference outputs from the same input, and the
+# decode form of its time_mix against the kernel's sequence form, must
+# agree within this (relative, Frobenius norm): they differ only in the
+# WKV's float32 summation order, measured at most 1.5e-6 a layer at full
+# width on the H100 (PERF.md).
+RWKV_LAYER_TOL = 1e-5
+# rwkv6_scan's kernel shapes [B, H, T, D]: rwkv6-7b's prefill (the
+# rwkv_prefill phase's) and a ragged one (T off the chunk, D 16)
+RWKV_SCAN, RWKV_RAGGED = (2, 64, 2048, 64), (2, 2, 37, 16)
 
 
 def emit(obj: dict) -> None:
@@ -1108,6 +1140,79 @@ def check_flash_attention(rng) -> dict:
             "shapes": shapes}
 
 
+def check_rwkv6_scan(rng) -> dict:
+    """B8 against its plain version (``rwkv6_ref``) on the card at
+    rwkv6-7b's prefill shape and a ragged one: r, k, v, u normal (u not
+    zero), w in (0.4, 0.9) as tests/test_kernels.py draws it; atol 1e-4,
+    the JAX package's tolerance for this kernel.  No single PyTorch call
+    computes WKV-6 (library_ms null).  Bound: r, k, v, w and o moved once
+    (u too) at HBM_BYTES_PER_S, and 5 * B * H * T * D^2 float32 FLOPs
+    (S^T r and diag(w) S + k v^T per step; the bonus term is O(D)) at
+    F32_OPS_PER_S."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import ops
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
+    dev = torch.device("cuda")
+    shapes = []
+    for tag, (b, h, tt, d) in (("rwkv6_prefill", RWKV_SCAN),
+                               ("ragged", RWKV_RAGGED)):
+        gen = torch.Generator(dev).manual_seed(int(rng.integers(1 << 30)))
+        r, k, v = (torch.randn((b, h, tt, d), generator=gen, device=dev)
+                   for _ in range(3))
+        w = torch.rand((b, h, tt, d), generator=gen, device=dev) * 0.5 + 0.4
+        u = torch.randn((h, d), generator=gen, device=dev)
+        got = ops.rwkv6_scan(r, k, v, w, u)
+        want = rwkv6_ref(r, k, v, w, u)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= 1e-4:
+            raise AssertionError(f"rwkv6_scan {tag}: max abs err {err} > "
+                                 "1e-4")
+        ms = cuda_ms(lambda: ops.rwkv6_scan(r, k, v, w, u), 10, 2)
+        plain_ms = cuda_ms(lambda: rwkv6_ref(r, k, v, w, u), 2, 1)
+        nbytes = 4 * (5 * r.numel() + u.numel())
+        flops = 5 * b * h * tt * d * d
+        b_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        b_ops = 1e3 * flops / F32_OPS_PER_S
+        shapes.append({
+            "tag": tag, "shape": [b, h, tt, d], "max_abs_err": err,
+            "out_max_abs": float(want.abs().max()), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"})
+        del r, k, v, w, got, want
+        torch.cuda.empty_cache()
+    main = shapes[0]     # rwkv6-7b's prefill: the rwkv_prefill phase's
+    return {"name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:44",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+            "shapes": shapes}
+
+
+def _argmax_gate(got, ref) -> dict:
+    """Argmax agreement of two logit tensors [..., V], and the reference's
+    top-two gap at every flip."""
+    import torch
+    am, rm = got.argmax(-1), ref.argmax(-1)
+    top2 = torch.topk(ref, 2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1])[am != rm]
+    return {"logits_max_abs_diff": float((got - ref).abs().max()),
+            "positions": am.numel(),
+            "argmax_agree": float((am == rm).float().mean()),
+            "argmax_flips": int(gap.numel()),
+            "flip_max_gap": float(gap.max()) if gap.numel() else None,
+            "tie_bound": PREFILL_TIE}
+
+
+def _gate_ok(g: dict) -> bool:
+    """At most 0.1% of the positions flip (one, where that is less than
+    one), and every flip is a near-tie."""
+    return g["argmax_flips"] <= max(1, int(0.001 * g["positions"])) and (
+        not g["argmax_flips"] or g["flip_max_gap"] < PREFILL_TIE)
+
+
 def prefill_phase(params, cfg, seed: int = PREFILL_SEED,
                   device=None) -> dict:
     """phi4-mini-3.8b's prefill forward at full width on ``params``:
@@ -1162,21 +1267,13 @@ def prefill_phase(params, cfg, seed: int = PREFILL_SEED,
         raise AssertionError("prefill: flash_attention did not launch once "
                              "per layer on backend cuda (and never on "
                              "reference)")
-    a, r = logits["cuda"], logits["reference"]
-    diff = float((a - r).abs().max())
-    am, rm = a.argmax(-1), r.argmax(-1)
-    top2 = torch.topk(r, 2, dim=-1).values
-    gap = (top2[..., 0] - top2[..., 1])[am != rm]
-    agree = float((am == rm).float().mean())
-    out.update({"logits_max_abs_diff": diff, "argmax_agree": agree,
-                "argmax_flips": int(gap.numel()),
-                "flip_max_gap": float(gap.max()) if gap.numel() else None,
-                "tie_bound": PREFILL_TIE,
-                "loss_abs_diff": abs(out["cuda"]["loss"]
-                                     - out["reference"]["loss"])})
-    del logits, a, r, top2
+    gate = _argmax_gate(logits["cuda"], logits["reference"])
+    out.update(gate)
+    out["loss_abs_diff"] = abs(out["cuda"]["loss"]
+                               - out["reference"]["loss"])
+    del logits
     torch.cuda.empty_cache()
-    if agree < 0.999 or (gap.numel() and float(gap.max()) >= PREFILL_TIE):
+    if not _gate_ok(gate):
         emit(out)
         raise AssertionError("prefill: the backends' argmax differ beyond "
                              "near-ties")
@@ -1186,7 +1283,9 @@ def prefill_phase(params, cfg, seed: int = PREFILL_SEED,
 def _profiled(fn, table: str) -> dict:
     """One call of ``fn`` under the profiler: its wall time, the device
     busy share and the device time by kernel (top 8; the whole table to
-    chiprun_out/``table``)."""
+    chiprun_out/``table``).  CUPTI's "Command Buffer Full" entries (the
+    host blocked on a full launch queue) carry a device time but are no
+    kernel: they are left out of the busy share and reported apart."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1199,13 +1298,15 @@ def _profiled(fn, table: str) -> dict:
     ka = prof.key_averages()
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0))
-    kern = [e for e in ka if not e.key.startswith("aten::")
-            and not e.key.startswith("cuda")]
+    full = [e for e in ka if e.key == "Command Buffer Full"]
+    kern = [e for e in ka if not e.key.startswith(("aten::", "cuda"))
+            and e.key != "Command Buffer Full"]
     OUT.mkdir(exist_ok=True)
     (OUT / table).write_text(ka.table(sort_by="self_cuda_time_total",
                                       row_limit=60))
     return {"window_s": window,
             "device_busy_share": sum(map(dev_us, kern)) / 1e6 / window,
+            "launch_queue_full_ms": sum(map(dev_us, full)) / 1e3,
             "top_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in
                        sorted(kern, key=dev_us, reverse=True)[:8]]}
 
@@ -1219,6 +1320,236 @@ def _param_leaves(tree):
             yield from _param_leaves(v)
     else:
         yield tree
+
+
+def rwkv_params(cfg, device=None):
+    """rwkv6-7b's parameters from RWKV_SEED on ``device`` (None: the card)
+    as the published init makes them, and a seeded non-zero ``time_mix.u``
+    per layer, N(0, 0.5^2) from RWKV_U_SEED.  The published init zeroes u
+    (the bonus of the current token in the WKV sum), which would leave
+    the kernel's bonus term unexercised; the phases install one or the
+    other (``_set_u``).  Returns (params with u zero, the non-zero u)."""
+    import torch
+    from repro_torch.models import model
+    dev = torch.device(device or "cuda")
+    params = model.init_params(cfg, torch.Generator(dev).manual_seed(
+        RWKV_SEED), device=dev)
+    gen = torch.Generator(dev).manual_seed(RWKV_U_SEED)
+    us = [torch.randn(blk["mixer"]["time_mix"]["u"].shape, generator=gen,
+                      device=dev) * 0.5 for blk in params["blocks"]]
+    return params, us
+
+
+def _set_u(params, us) -> None:
+    """Install each layer's ``time_mix.u`` from ``us`` (None: zero)."""
+    for i, blk in enumerate(params["blocks"]):
+        u = blk["mixer"]["time_mix"]["u"]
+        if us is None:
+            u.zero_()
+        else:
+            u.copy_(us[i])
+
+
+def _rwkv_layer_check(params, cfg, tokens) -> dict:
+    """The kernel held against its plain version inside the model, layer
+    by layer, on the model's own activations: each layer's block on
+    backend "cuda" and "reference" from the same input (the "cuda"
+    leg's hidden state), and the decode form of its ``time_mix``
+    (``_wkv_step``, token by token from a zero state over the first
+    RWKV_FORCED positions) against the sequence form on "cuda" (B8).
+    Relative errors in the Frobenius norm, per layer."""
+    import torch
+    from repro_torch.models import model, rwkv6
+    from repro_torch.models.common import norm
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    hd = cfg.d_model // cfg.n_heads
+    blocks, steps = [], []
+    with torch.no_grad():
+        x = params["embed"][tokens]
+        for blk in params["blocks"]:
+            tm = blk["mixer"]["time_mix"]
+            y = model._block_apply(cfg, blk, x, None, -1, "cuda")
+            blocks.append(rel(y, model._block_apply(cfg, blk, x, None, -1,
+                                                    "reference")))
+            h = norm(blk["ln1"], x[:, :RWKV_FORCED], cfg.norm_kind,
+                     cfg.norm_eps)
+            seq, _ = rwkv6.time_mix(tm, cfg, h, backend="cuda")
+            state = torch.zeros((h.shape[0], cfg.n_heads, hd, hd),
+                                device=h.device)
+            last = torch.zeros_like(h[:, 0])
+            outs = []
+            for t in range(RWKV_FORCED):
+                o, (state, last) = rwkv6.time_mix(
+                    tm, cfg, h[:, t:t + 1], state=state, last_x=last)
+                outs.append(o)
+            steps.append(rel(torch.cat(outs, 1), seq))
+            x = y
+    return {"block_rel_err": blocks, "step_rel_err": steps,
+            "tol": RWKV_LAYER_TOL}
+
+
+def rwkv_prefill_phase(params, cfg, us, seed: int = RWKV_TOKENS_SEED,
+                       device=None):
+    """rwkv6-7b's prefill forward at full width, tokens [PREFILL_BATCH,
+    PREFILL_SEQ] from ``seed``.  With the non-zero ``us`` installed:
+    ``loss_fn`` and ``forward`` on backend "cuda" (B8 in every layer;
+    profiled) and "reference" (``rwkv6_ref``'s per-token loop, about
+    65,000 steps a forward, so not profiled), timed; B8 must launch once
+    per layer on "cuda" and never on "reference", the logits must be
+    finite, and every layer must agree within RWKV_LAYER_TOL
+    (``_rwkv_layer_check``).  The end-to-end argmax of that model is
+    recorded, not gated: a near-zero bonus at position 0 leaves a head's
+    output below the group norm's epsilon, and the 32 random layers
+    amplify float32 summation-order differences there up to flips of
+    gap 0.05 (PERF.md).  With the published init (u zero) installed:
+    ``forward`` on both backends, whose argmax must agree
+    (``_gate_ok``).  Returns (phase line, tokens, the "cuda" forward's
+    logits with u zero); leaves u zero."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import model
+    dev = torch.device(device or "cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    n_tok = tokens.numel()
+    out = {"phase": "rwkv_prefill", "model": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "head_dim": cfg.d_model // cfg.n_heads,
+           "tokens": list(tokens.shape),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in _param_leaves(params)) / 1e9}
+    _set_u(params, us)
+    logits = {}
+    for backend in ("cuda", "reference"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        loss = float(model.loss_fn(cfg, params, batch, backend=backend))
+        t_loss = time.time() - t0
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        lg, _ = model.forward(cfg, params, batch, backend=backend)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        out[backend] = {
+            "forward_s": dt, "tokens_per_s": n_tok / dt,
+            "loss_fn_s": t_loss, "loss": loss,
+            "rwkv6_scan_launches_per_forward":
+                kernels.LAUNCHES["rwkv6_scan"],
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30}
+        if backend == "cuda":
+            out[backend]["profiled_forward"] = _profiled(
+                lambda: model.forward(cfg, params, batch, backend=backend),
+                "profile_rwkv_prefill_cuda.txt")
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"rwkv_prefill ({backend}): non-finite "
+                                 "logits")
+        logits[backend] = lg
+        del lg
+        print(f"# rwkv_prefill {backend}: forward {dt:.2f}s",
+              file=sys.stderr, flush=True)
+    if out["cuda"]["rwkv6_scan_launches_per_forward"] != cfg.n_layers \
+            or out["reference"]["rwkv6_scan_launches_per_forward"]:
+        raise AssertionError("rwkv_prefill: rwkv6_scan did not launch once "
+                             "per layer on backend cuda (and never on "
+                             "reference)")
+    out["u_nonzero"] = _argmax_gate(logits["cuda"], logits["reference"])
+    out["u_nonzero"]["loss_abs_diff"] = abs(out["cuda"]["loss"]
+                                            - out["reference"]["loss"])
+    del logits
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["layer_check"] = _rwkv_layer_check(params, cfg, tokens)
+    out["layer_check"]["seconds"] = time.time() - t0
+    worst = max(out["layer_check"]["block_rel_err"]
+                + out["layer_check"]["step_rel_err"])
+    if not worst <= RWKV_LAYER_TOL:
+        emit(out)
+        raise AssertionError(f"rwkv_prefill: a layer's cuda and reference "
+                             f"outputs differ by {worst} > "
+                             f"{RWKV_LAYER_TOL}")
+
+    _set_u(params, None)
+    with torch.no_grad():
+        cuda_logits, _ = model.forward(cfg, params, batch, backend="cuda")
+        ref_logits, _ = model.forward(cfg, params, batch,
+                                      backend="reference")
+    gate = _argmax_gate(cuda_logits, ref_logits)
+    out["published_init"] = gate
+    del ref_logits
+    torch.cuda.empty_cache()
+    if not _gate_ok(gate):
+        emit(out)
+        raise AssertionError("rwkv_prefill: the backends' argmax differ "
+                             "beyond near-ties (u zero)")
+    return out, tokens, cuda_logits
+
+
+def rwkv_decode_phase(params, cfg, tokens, fwd_logits) -> dict:
+    """``decode_step`` at rwkv6-7b's full width (the published init, u
+    zero, as ``rwkv_prefill_phase`` leaves it; the decode form with a
+    non-zero u is held per layer there) from a float32 ``init_cache`` of
+    batch PREFILL_BATCH: the first RWKV_FORCED tokens of the prefill
+    batch teacher-forced, each position's logits held against the "cuda"
+    forward's (``fwd_logits``) by ``_gate_ok``; then
+    RWKV_NEW greedy tokens from that state, timed one by one.  Decode
+    runs no kernel in either package (``_wkv_step`` is plain tensor
+    code), so there is one run, no backend legs."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    dev = tokens.device
+    b = tokens.shape[0]
+    cache = model.init_cache(cfg, b, RWKV_FORCED + RWKV_NEW,
+                             dtype=torch.float32, device=dev)
+    pos = torch.zeros(b, dtype=torch.int32, device=dev)
+    forced = []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in range(RWKV_FORCED):
+        lg, cache = model.decode_step(cfg, params, cache, tokens[:, i], pos)
+        forced.append(lg)
+        pos += 1
+    forced = torch.stack(forced, dim=1)               # [B, FORCED, V]
+    torch.cuda.synchronize()
+    t_forced = time.time() - t0
+    if not torch.isfinite(forced).all():
+        raise AssertionError("rwkv_decode: non-finite logits")
+    gate = _argmax_gate(forced, fwd_logits[:, :RWKV_FORCED])
+    tok = forced[:, -1].argmax(-1)
+    new, walls = [], []
+    for _ in range(RWKV_NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(cfg, params, cache, tok, pos)
+        tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        new.append(tok)
+        pos += 1
+    w = np.asarray(walls) * 1e3
+    new = torch.stack(new, dim=1)
+    out = {"phase": "rwkv_decode", "model": cfg.name, "batch": b,
+           "cache_dtype": "float32", "teacher_forced": RWKV_FORCED,
+           "teacher_forced_s": t_forced, **gate,
+           "greedy": RWKV_NEW,
+           "ms_per_token_p50": float(np.percentile(w, 50)),
+           "ms_per_token_p90": float(np.percentile(w, 90)),
+           "ms_per_token_max": float(w.max()),
+           "tokens_per_s": float(b * RWKV_NEW / (w.sum() / 1e3)),
+           "greedy_tokens": new.tolist(),
+           "state_max_abs": float(cache["wkv"].abs().max())}
+    if not (0 <= int(new.min()) and int(new.max()) < cfg.vocab):
+        raise AssertionError("rwkv_decode: greedy tokens out of range")
+    if not _gate_ok(gate):
+        emit(out)
+        raise AssertionError("rwkv_decode: the teacher-forced decode's "
+                             "argmax differs from the forward's beyond "
+                             "near-ties")
+    return out
 
 
 # ------------------------------------------------------------ phase 7
@@ -1484,6 +1815,7 @@ def main() -> int:
     rows = [check_clock_update(full, BATCH, rng), check_msc_score(full, rng)]
     rows += check_tier_compact(full, embed_cfg, rng)
     rows.append(check_flash_attention(rng))
+    rows.append(check_rwkv6_scan(rng))
     emit({"phase": "kernels", "rows": rows})
 
     # the model phases: phi4-mini-3.8b at full width, prefill and serving
@@ -1502,6 +1834,19 @@ def main() -> int:
     emit(srv)
     rows.append(b6)
     del params
+    torch.cuda.empty_cache()
+
+    # rwkv6-7b at full width: the prefill forward on B8, then the decode
+    rcfg = get_arch(RWKV_MODEL)
+    t0 = time.time()
+    params, us = rwkv_params(rcfg)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    rpre, rtok, rlogits = rwkv_prefill_phase(params, rcfg, us)
+    rpre["init_params_s"] = t_init
+    emit(rpre)
+    emit(rwkv_decode_phase(params, rcfg, rtok, rlogits))
+    del params, us, rtok, rlogits
     torch.cuda.empty_cache()
     line, base = engine_parity(BATCH)
     emit(line)
@@ -1552,14 +1897,16 @@ def main() -> int:
     emit(embed_phase(steps=EMBED_DIAG_STEPS, tokens=EMBED_DIAG_TOKENS,
                      diagnose=True))
     # launches: each kernel's count in the full-size run of its path
-    # (B7: per "cuda" forward of the prefill phase; B6: its entry point's
-    # call on the serve phase's live pools)
+    # (B7: per "cuda" forward of the prefill phase; B8: of rwkv_prefill;
+    # B6: its entry point's call on the serve phase's live pools)
     where = {"clock_update": full_res, "msc_score": full_res,
              "select_gather_rows": fq_res, "scatter_rows": fq_res,
              "gather_rows": emb["cuda"]}
     for r in rows:
         if r["name"] == "flash_attention":
             r["launches"] = pre["cuda"]["flash_attention_launches_per_forward"]
+        elif r["name"] == "rwkv6_scan":
+            r["launches"] = rpre["cuda"]["rwkv6_scan_launches_per_forward"]
         elif r["name"] != "paged_attention":
             r["launches"] = where[r["name"]]["launches"][r["name"]]
     emit({"phase": "done", "elapsed_s": time.time() - t_start})

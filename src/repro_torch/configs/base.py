@@ -3,8 +3,9 @@ JAX package's ``configs/base.py``): ``ModelConfig``, ``get_arch`` and
 ``reduced``, the tiny same-family config of the CPU tests.
 
 Only the architectures the port runs are registered (phi4-mini-3.8b, and
-gemma3-1b for the windowed-attention tests and kernel shapes); the other
-families wait for the slices that port their layers (ROADMAP Queue 1).
+gemma3-1b for the windowed-attention tests and kernel shapes; rwkv6-7b,
+the ssm family); the other families wait for the slices that port their
+layers (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -97,7 +98,8 @@ def all_archs() -> dict:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from repro_torch.configs import gemma3_1b, phi4_mini_3_8b  # noqa: F401
+    from repro_torch.configs import (gemma3_1b, phi4_mini_3_8b,  # noqa: F401
+                                     rwkv6_7b)
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

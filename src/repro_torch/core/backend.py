@@ -2,10 +2,10 @@
 
 The kernelized primitives -- the CLOCK tracker update (§4.3),
 approx-MSC candidate scoring (§5), the tier_compact row movers of the
-quantized drain and the payload mirrors, and the model's flash and paged
-decode attention -- each exist twice: a plain PyTorch version and a
-hand-written CUDA kernel under ``repro_torch.kernels``.  This module
-decides which one runs.
+quantized drain and the payload mirrors, the model's flash and paged
+decode attention, and RWKV-6's WKV scan -- each exist twice: a plain
+PyTorch version and a hand-written CUDA kernel under
+``repro_torch.kernels``.  This module decides which one runs.
 
 * ``"reference"`` runs the plain PyTorch version on any device.
 * ``"cuda"`` launches the kernel for CUDA tensors.  The plain version is

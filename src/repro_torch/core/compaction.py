@@ -152,6 +152,8 @@ def compact_once(state: TierState, cfg: TierConfig, key: torch.Tensor,
     promote_want = promote_want & (rank < n_dem_total)
     pro_slots = alloc_slots(fast_keys, promote_want)
     pro_ok = promote_want & (pro_slots >= 0)
+    # tensor writes below target alloc_slots' or nonzero_fixed's distinct
+    # slots and run ids; the scalar writes may repeat (win_rids)
     set_where(fast_keys, pro_ok, pro_slots, skeys)
     set_where(fast_vals, pro_ok, pro_slots, svals)
     set_where(fast_ver, pro_ok, pro_slots, 1)

@@ -111,7 +111,7 @@ def _unique_padded(x: torch.Tensor) -> torch.Tensor:
     s = torch.sort(x).values
     first = torch.ones_like(s, dtype=torch.bool)
     first[1:] = s[1:] != s[:-1]
-    rank = torch.cumsum(first, 0) - 1
+    rank = torch.cumsum(first, 0) - 1     # distinct for the first lanes
     return set_where(torch.full_like(s, -1), first, rank, s)
 
 
@@ -139,6 +139,7 @@ def prepare_batch(state: EmbedStoreState, cfg: EmbedStoreConfig,
                                           is_del=False)
     new_slot, nf = sorted_lookup(tier.idx_keys[0], tier.idx_slots[0], keys)
     moved = fetch & nf
+    # keys are distinct (_unique_padded), so their fast slots are too
     rows_fast = set_where(state.rows_fast, moved, new_slot.to(torch.int64),
                           fetched)
     # the promotion fetch is a slow read

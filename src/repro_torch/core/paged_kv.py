@@ -115,7 +115,9 @@ def _set_pages(pool: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
                vals) -> torch.Tensor:
     """In place along the pool axis (1): ``pool[:, idx[i]] = vals[:, i]``
     where ``mask[i]`` and ``idx[i]`` is in range; a scalar ``vals`` is
-    broadcast.  Active targets must be unique."""
+    broadcast (a scalar may repeat a target; ``set_where``).  Tensor
+    writes target distinct pages: each live sequence owns its page, and
+    a Movement's destination slots are distinct."""
     if torch.is_tensor(vals) and vals.dim() > 0:
         vals = torch.movedim(vals, 1, 0)
     set_where(torch.movedim(pool, 1, 0), mask, idx.to(torch.int64), vals)

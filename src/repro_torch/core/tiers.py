@@ -273,6 +273,9 @@ def apply_point_ops(state: TierState, cfg: TierConfig, keys: torch.Tensor,
 
         # ---- pool writes ------------------------------------------------
         ver_upd = fast_ver[fc].abs() + 1
+        # tensor writes: upd lanes are distinct keys (dedupe_keep_last) in
+        # distinct live slots; alloc_slots hands out distinct free slots,
+        # and a tombstone lands on a live slot it keeps or on a new one
         set_where(fast_vals, upd, fslot, vals)
         set_where(fast_ver, upd, fslot, ver_upd)
         ins_put = ins_ok & fresh_put

@@ -110,6 +110,7 @@ def access_batched(state: TrackerState, keys: torch.Tensor,
                                       state.loc[sslot]))
 
     live = (seg_slot < t) & (last_cand >= 0)
+    # one lane per segment, and segments are distinct slots: unique
     tk = set_where(state.keys.clone(), live, seg_slot, new_key)
     tc = set_where(state.clock.clone(), live, seg_slot, new_clock)
     tl = set_where(state.loc.clone(), live, seg_slot, new_loc)
@@ -146,7 +147,10 @@ def lookup_clock(state: TrackerState, keys: torch.Tensor
 def set_location(state: TrackerState, keys: torch.Tensor, loc: int,
                  valid: torch.Tensor) -> TrackerState:
     """Update location bits after demotion/promotion (only if still
-    tracked).  Writes ``state.loc`` in place and returns the state."""
+    tracked).  Writes ``state.loc`` in place and returns the state.
+
+    ``keys`` may repeat a tracked key: every hit slot gets ``loc``, as
+    the JAX package's ``.at[].set`` gives (a scalar ``set_where``)."""
     slots = slot_of(state.capacity, keys)
     hit = (state.keys[slots] == keys) & valid
     set_where(state.loc, hit, slots, loc)

@@ -111,22 +111,29 @@ def set_where(dst: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
     and ``0 <= idx[i] < len(dst)``; other lanes write nothing (the JAX
     package's ``.at[].set(mode="drop")``).  Returns ``dst``.
 
-    Written as an exact integer scatter-add of bit-pattern differences:
-    on the integer view of ``dst`` each active lane adds
-    ``new - old`` (wrapping), each inactive lane adds 0 at a clamped
-    target -- no host read, no data-dependent shape, and inactive lanes
-    cannot clobber an active target.  Active targets must be unique, as
-    every caller guarantees."""
+    The rule: a scalar ``vals`` may repeat a target, a tensor ``vals``
+    may not.  A scalar is written by marking the active targets in a
+    mask one longer than ``dst`` (inactive lanes mark the spare entry)
+    and filling the value in where the mask is set, so a target hit n
+    times still gets the value.  A tensor is written as an exact integer
+    scatter-add of bit-pattern differences: on the integer view of
+    ``dst`` each active lane adds ``new - old`` (wrapping), each inactive
+    lane adds 0 at a clamped target -- inactive lanes cannot clobber an
+    active target, but a repeated active target would get the sum of
+    its differences, so each caller that passes a tensor guarantees
+    unique active targets.  Neither form reads back to the host or has
+    a data-dependent shape."""
     n = dst.shape[0]
     ok = mask & (idx >= 0) & (idx < n)
+    if not (torch.is_tensor(vals) and vals.dim() > 0):
+        hit = torch.zeros(n + 1, dtype=torch.bool, device=dst.device)
+        hit.index_fill_(0, torch.where(ok, idx, n).to(torch.int64), True)
+        return dst.masked_fill_(hit[:n].view((n,) + (1,) * (dst.dim() - 1)),
+                                vals)
     tgt = torch.where(ok, idx, 0)
     bits = dst.view(_BITS[dst.dtype])
     old = bits[tgt]
-    if torch.is_tensor(vals) and vals.dim() > 0:
-        new = vals.to(dst.dtype).view(bits.dtype)
-    else:
-        new = torch.full((), vals, dtype=dst.dtype,
-                         device=dst.device).view(bits.dtype)
+    new = vals.to(dst.dtype).view(bits.dtype)
     okb = ok.view((-1,) + (1,) * (old.dim() - 1))
     bits.index_add_(0, tgt, torch.where(okb, new - old, 0))
     return dst

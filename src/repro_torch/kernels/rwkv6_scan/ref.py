@@ -1,0 +1,28 @@
+"""Plain PyTorch version of the rwkv6_scan kernel (B8): the JAX package's
+``kernels/rwkv6_scan/ref.py`` ``rwkv6_ref``.
+
+RWKV-6 (Finch) WKV recurrence with data-dependent decay, per (batch,
+head) with state S in R^{D x D}:
+  o_t = (S_{t-1} + diag(u) k_t v_t^T)^T r_t
+  S_t = diag(w_t) S_{t-1} + k_t v_t^T
+A loop over T in float32 with the state written out; one step is a few
+[B, H, D, D] tensor ops, so on the card it costs a launch each.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def rwkv6_ref(r, k, v, w, u):
+    """r, k, v, w: [B, H, T, D] (w = decay in (0, 1)); u: [H, D].
+    Returns [B, H, T, D] in r's dtype."""
+    b, h, t, d = r.shape
+    rf, kf, vf, wf = (x.to(torch.float32) for x in (r, k, v, w))
+    uu = u.to(torch.float32)[None, :, :, None]             # [1, H, D, 1]
+    s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    out = torch.empty((b, h, t, d), dtype=torch.float32, device=r.device)
+    for i in range(t):
+        kv = kf[:, :, i, :, None] * vf[:, :, i, None, :]   # [B, H, D, D]
+        out[:, :, i] = (rf[:, :, i, None, :] @ (s + uu * kv))[:, :, 0]
+        s = wf[:, :, i, :, None] * s + kv
+    return out.to(r.dtype)

@@ -46,6 +46,9 @@ class ParamInit:
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(shape, device=self.device, dtype=self.dtype)
 
+    def full(self, shape, value: float) -> torch.Tensor:
+        return torch.full(shape, value, device=self.device, dtype=self.dtype)
+
 
 def init_ffn(pi: ParamInit, d_model: int, d_ff: int, kind: str) -> dict:
     if kind == "swiglu":
@@ -78,6 +81,18 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.to(torch.float32) + bias.to(torch.float32)).to(dt)
+
+
+def group_norm(x, weight, bias, groups: int, eps: float = 1e-5):
+    """x: [..., d]; normalise within ``groups`` channel groups (float32
+    statistics, biased variance), output in x's dtype."""
+    dt = x.dtype
+    *lead, d = x.shape
+    x = x.to(torch.float32).reshape(*lead, groups, d // groups)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = ((x - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
     return (y * weight.to(torch.float32) + bias.to(torch.float32)).to(dt)
 
 

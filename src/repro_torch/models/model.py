@@ -1,16 +1,20 @@
-"""The model: init / forward / loss / decode for the dense family (the
-port's copy of the JAX package's ``models/model.py``).
+"""The model: init / forward / loss / decode for the dense and ssm
+(rwkv6) families (the port's copy of the JAX package's
+``models/model.py``).
 
 Parameters are a dict: ``embed`` [V, D], ``final_norm``, ``lm_head`` when
-embeddings are untied, and ``blocks``, a list with one dict per layer
-(``mixer``: wq/wk/wv/wo, ``ffn``, ``ln1``, ``ln2``) in the JAX package's
-layouts.  ``params_from_numpy`` carries a JAX parameter pytree (stacked
-[L, ...] blocks) across.  The JAX package scans its layers with the
-per-layer window as a traced scan input; here the layers are a Python
-loop and each window is a Python int (``cfg.layer_windows``), so backend
-"cuda" runs the flash_attention kernel (B7) in every layer.
+embeddings are untied, and ``blocks``, a list with one dict per layer in
+the JAX package's layouts: dense ``mixer`` (wq/wk/wv/wo), ``ffn``,
+``ln1``, ``ln2``; ssm ``mixer`` (``time_mix``, ``channel_mix``: the
+channel mix is its ffn), ``ln1``, ``ln2``.  ``params_from_numpy`` carries
+a JAX parameter pytree (stacked [L, ...] blocks) across.  The JAX package
+scans its layers with the per-layer window as a traced scan input; here
+the layers are a Python loop and each window is a Python int
+(``cfg.layer_windows``), so backend "cuda" runs the flash_attention
+kernel (B7) in every dense layer, and the rwkv6_scan kernel (B8) in
+every ssm layer.
 
-The MoE, hybrid (jamba), ssm (rwkv6), vlm and audio families raise
+The MoE, hybrid (jamba), vlm and audio families raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -21,13 +25,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (ParamInit, ffn, init_ffn, init_norm,
                                        norm)
 
 _TODO = {
     "moe": "ROADMAP Queue 1 item 12 / slice 5: moe.py with jamba",
     "hybrid": "ROADMAP Queue 1 item 12 / slice 5: jamba forward (B9)",
-    "ssm": "ROADMAP Queue 1 item 12 / slice 4: rwkv6-7b forward (B8)",
     "vlm": "ROADMAP Queue 1 item 12: M-RoPE (qwen2-vl)",
     "audio": "ROADMAP Queue 1 item 12: encoder-decoder (whisper)",
 }
@@ -36,7 +40,7 @@ _TODO = {
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the families this slice of the port does not run."""
     fam = "moe" if cfg.moe else cfg.family
-    if fam != "dense" or cfg.m_rope or cfg.embed_inputs:
+    if fam not in ("dense", "ssm") or cfg.m_rope or cfg.embed_inputs:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported yet: "
             f"{_TODO.get(fam, _TODO['vlm'])}")
@@ -45,6 +49,10 @@ def check_supported(cfg: ModelConfig) -> None:
 # ------------------------------------------------------------------- init
 
 def _init_block(pi: ParamInit, cfg: ModelConfig) -> dict:
+    if cfg.family == "ssm":           # rwkv's channel mix is its ffn
+        return {"mixer": rwkv_mod.init_rwkv_layer(pi, cfg),
+                "ln1": init_norm(pi, cfg.d_model, cfg.norm_kind),
+                "ln2": init_norm(pi, cfg.d_model, cfg.norm_kind)}
     return {"mixer": attn_mod.init_attention(pi, cfg),
             "ffn": init_ffn(pi, cfg.d_model, cfg.d_ff, cfg.ffn_kind),
             "ln1": init_norm(pi, cfg.d_model, cfg.norm_kind),
@@ -93,9 +101,17 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
 def _block_apply(cfg: ModelConfig, p, x, positions, window: int,
                  backend: str):
     h = norm(p["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    x = x + attn_mod.attention(p["mixer"], cfg, h, positions, window,
-                               backend=backend)
+    if cfg.family == "ssm":
+        mix, _ = rwkv_mod.time_mix(p["mixer"]["time_mix"], cfg, h,
+                                   backend=backend)
+    else:
+        mix = attn_mod.attention(p["mixer"], cfg, h, positions, window,
+                                 backend=backend)
+    x = x + mix
     h = norm(p["ln2"], x, cfg.norm_kind, cfg.norm_eps)
+    if cfg.family == "ssm":
+        out, _ = rwkv_mod.channel_mix(p["mixer"]["channel_mix"], h)
+        return x + out
     return x + ffn(p["ffn"], h, cfg.ffn_kind, cfg.act)
 
 
@@ -106,9 +122,10 @@ def _lm_logits(cfg: ModelConfig, params, x):
 
 def forward(cfg: ModelConfig, params, batch: dict, *,
             backend: str = "reference"):
-    """batch: ``tokens`` [B, S] (and optionally ``positions`` [B, S]).
-    Returns (logits [B, S, V], aux), aux a float32 zero for the dense
-    family.  Evaluation only: no gradient is kept."""
+    """batch: ``tokens`` [B, S] (and optionally ``positions`` [B, S]; the
+    ssm family reads none).  Returns (logits [B, S, V], aux), aux a
+    float32 zero for these families.  Evaluation only: no gradient is
+    kept."""
     check_supported(cfg)
     with torch.no_grad():
         x = params["embed"][batch["tokens"].to(torch.int64)]
@@ -143,10 +160,19 @@ def loss_fn(cfg: ModelConfig, params, batch, *, backend: str = "reference"):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Dense decode cache {"k", "v"}: [L, B, Hkv, S_max, hd] on ``device``
-    (None: the card)."""
+    """Decode cache on ``device`` (None: the card).  Dense: {"k", "v"}
+    [L, B, Hkv, S_max, hd]; ssm: {"wkv"} [L, B, H, hd, hd] float32 and
+    {"last_tm", "last_cm"} [L, B, D] in ``dtype`` (``max_seq`` unused)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        d, h = cfg.d_model, cfg.n_heads
+        return {"wkv": torch.zeros((cfg.n_layers, batch, h, d // h, d // h),
+                                   dtype=torch.float32, device=dev),
+                "last_tm": torch.zeros((cfg.n_layers, batch, d), dtype=dtype,
+                                       device=dev),
+                "last_cm": torch.zeros((cfg.n_layers, batch, d), dtype=dtype,
+                                       device=dev)}
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -154,9 +180,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
                 backend: str = "reference"):
-    """One decode token: tokens [B] int32, pos [B] current lengths.
-    Returns (logits [B, V], cache); the cache is updated IN PLACE."""
+    """One decode token: tokens [B] int32, pos [B] current lengths (the
+    ssm family ignores ``pos``, as the JAX package does).  Returns
+    (logits [B, V], cache); the cache is updated IN PLACE, its carried
+    values stored in the cache's dtype (the JAX package returns the ssm
+    family's ``last_tm``/``last_cm`` in the activations' dtype).  No
+    kernel runs in decode: ``backend`` is not read."""
     check_supported(cfg)
+    if cfg.family == "ssm":
+        return _decode_rwkv(cfg, params, cache, tokens)
     return _decode_dense(cfg, params, cache, tokens, pos)
 
 
@@ -172,5 +204,25 @@ def _decode_dense(cfg: ModelConfig, params, cache, tokens, pos):
             x = x + mix
             h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
             x = x + ffn(blk["ffn"], h, cfg.ffn_kind, cfg.act)
+        x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        return _lm_logits(cfg, params, x)[:, 0], cache
+
+
+def _decode_rwkv(cfg: ModelConfig, params, cache, tokens):
+    with torch.no_grad():
+        x = params["embed"][tokens.to(torch.int64)][:, None]   # [B, 1, D]
+        for i, blk in enumerate(params["blocks"]):
+            h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+            mix, (wkv_s, ltm) = rwkv_mod.time_mix(
+                blk["mixer"]["time_mix"], cfg, h, state=cache["wkv"][i],
+                last_x=cache["last_tm"][i])
+            x = x + mix
+            h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
+            out, lcm = rwkv_mod.channel_mix(blk["mixer"]["channel_mix"], h,
+                                            last_x=cache["last_cm"][i])
+            x = x + out
+            cache["wkv"][i].copy_(wkv_s)
+            cache["last_tm"][i].copy_(ltm)
+            cache["last_cm"][i].copy_(lcm)
         x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
         return _lm_logits(cfg, params, x)[:, 0], cache

@@ -133,6 +133,26 @@ def test_set_where_drops_masked_and_out_of_range():
     assert dst.tolist() == [0, 1, 2, 30, 4, 5, 6, 70, 8, 9]
 
 
+@pytest.mark.parametrize("dtype", ["int8", "int32", "bool"])
+def test_set_where_scalar_repeats_a_target(dtype):
+    """A scalar value may repeat a target (``set_where``'s rule): every
+    hit slot gets the value once, as JAX's ``.at[].set(mode="drop")``
+    gives, also where inactive or out-of-range lanes point at slot 0 or
+    at a repeated target; on 2-d rows too."""
+    rng = np.random.default_rng(11)
+    for rows in ((40,), (40, 3)):
+        dst = (rng.integers(0, 2, rows) if dtype == "bool"
+               else rng.integers(-50, 50, rows)).astype(dtype)
+        idx = np.array([3, 3, 3, 5, 0, 0, 40, -1, 7, 7, 39, 3], np.int32)
+        mask = np.array([1, 1, 1, 1, 0, 0, 1, 1, 1, 0, 1, 0], bool)
+        val = True if dtype == "bool" else 9
+        want = np.asarray(jnp.asarray(dst).at[
+            jnp.where(jnp.asarray(mask), jnp.asarray(idx), 40)].set(
+                val, mode="drop"))
+        got = tu.set_where(t(dst), t(mask), t(idx), val)
+        assert_bit_equal(want, got.numpy())
+
+
 # ------------------------------------------------------------------ bloom
 
 @pytest.mark.parametrize("n_words", [32, 1024])
@@ -161,17 +181,20 @@ def test_bloom(n_words):
 @pytest.mark.parametrize("cap,batch", [(1024, 256), (512, 128), (1021, 256),
                                        (331, 64), (409, 700)])
 def test_tracker_access_batched(cap, batch):
+    """Each case draws from its own generator, so its inputs do not
+    depend on which worker runs it or in what order."""
+    rng = np.random.default_rng(cap * 10_000 + batch)
     js, ts = jtracker.init(cap), tracker.init(cap, "cpu")
     for _ in range(5):
-        keys = RNG.integers(0, 4 * cap, batch).astype(np.int32)
-        locs = RNG.integers(0, 2, batch).astype(np.int8)
-        valid = RNG.random(batch) > 0.1
+        keys = rng.integers(0, 4 * cap, batch).astype(np.int32)
+        locs = rng.integers(0, 2, batch).astype(np.int8)
+        valid = rng.random(batch) > 0.1
         js = jtracker.access_batched(js, *map(jnp.asarray,
                                               (keys, locs, valid)))
         ts = tracker.access_batched(ts, t(keys), t(locs), t(valid))
         for a, b in zip(js, ts):
             assert_bit_equal(np.asarray(a), b.numpy())
-    q = RNG.integers(0, 4 * cap, 300).astype(np.int32)
+    q = rng.integers(0, 4 * cap, 300).astype(np.int32)
     for a, b in zip(jtracker.lookup_clock(js, jnp.asarray(q)),
                     tracker.lookup_clock(ts, t(q))):
         assert_bit_equal(np.asarray(a), b.numpy())
@@ -179,11 +202,31 @@ def test_tracker_access_batched(cap, batch):
                      tracker.clock_histogram(ts).numpy())
     assert_bit_equal(np.asarray(jtracker.fast_fraction_of_tracked(js)),
                      tracker.fast_fraction_of_tracked(ts).numpy())
-    m = RNG.random(300) > 0.5
+    m = rng.random(300) > 0.5
     want = jtracker.set_location(js, jnp.asarray(q), jnp.int8(1),
                                  jnp.asarray(m))
     got = tracker.set_location(ts, t(q), 1, t(m))
     assert_bit_equal(np.asarray(want.loc), got.loc.numpy())
+
+
+def test_set_location_repeated_keys():
+    """``set_location`` with a tracked key repeated in ``keys``: JAX's
+    ``.at[].set`` gives loc 1 in every hit slot; a per-lane difference
+    add would give key 3's slot 0 + 3 * (1 - 0) = 3."""
+    keys = np.arange(10, dtype=np.int32)
+    js, ts = jtracker.init(64), tracker.init(64, "cpu")
+    js = jtracker.access_batched(js, jnp.asarray(keys),
+                                 jnp.zeros(10, jnp.int8), jnp.ones(10, bool))
+    ts = tracker.access_batched(ts, t(keys), torch.zeros(10, dtype=torch.int8),
+                                torch.ones(10, dtype=torch.bool))
+    assert_bit_equal(np.asarray(js.keys), ts.keys.numpy())
+    rep = np.array([3, 3, 3, 5], np.int32)
+    want = jtracker.set_location(js, jnp.asarray(rep), jnp.int8(1),
+                                 jnp.ones(4, bool))
+    got = tracker.set_location(ts, t(rep), 1, torch.ones(4, dtype=torch.bool))
+    assert_bit_equal(np.asarray(want.loc), got.loc.numpy())
+    hit = np.isin(np.asarray(want.keys), [3, 5])
+    assert hit.sum() == 2 and np.all(got.loc.numpy()[hit] == 1)
 
 
 # ----------------------------------------------------------------- mapper

@@ -1,6 +1,6 @@
 """Kernels B1 (clock_update), B2 (msc_score), B3-B5 (the tier_compact
 row movers select_gather_rows, scatter_rows, gather_rows), B6
-(paged_attention) and B7 (flash_attention) of the port.
+(paged_attention), B7 (flash_attention) and B8 (rwkv6_scan) of the port.
 
 On the CPU: each wrapper takes its plain PyTorch version, held against
 the JAX package's kernel wrappers (``backend="reference"`` and the Pallas
@@ -8,7 +8,9 @@ kernel in interpret mode) -- B1 bit-exact, B2 within rtol 1e-5 (the
 tolerance of tests/test_kernels.py) with equal argmax; the movers' plain
 versions are held to JAX in tests/test_torch_mirror.py; B6's and B7's
 plain versions within atol 2e-5 in float32 and 2e-2 in bfloat16 of the
-Pallas kernels in interpret mode (tests/test_kernels.py:28,51).
+Pallas kernels in interpret mode (tests/test_kernels.py:28,51); B8's
+within atol 1e-4 of JAX's ``wkv`` on both its backends
+(tests/test_kernels.py:325).
 On a card (marker ``cuda``, skipped without one): each CUDA kernel held
 against its plain version on the same inputs.  The machine with the card
 has no JAX, so the JAX package is imported only inside the CPU tests; run
@@ -515,3 +517,116 @@ def test_paged_attention_kernel_on_card(b, hq, hkv, d, P, T, K, pool_dtype,
         assert float((got.float() - want.float()).abs().max()) <= tol
         assert float(got[-1].float().abs().max()) == 0.0
     assert kernels.LAUNCHES["paged_attention"] == n0 + 2
+
+
+# ------------------------------------------------------------- rwkv6 scan
+
+RWKV_SHAPES = [(2, 2, 37, 16), (1, 4, 64, 32)]     # tests/test_kernels.py:314
+
+
+def _rwkv_inputs(rng, b, h, tt, d):
+    """r, k, v normal, w in (0.4, 0.9), u normal, as
+    tests/test_kernels.py:318-322 draws them."""
+    return (rng.normal(size=(b, h, tt, d)).astype(np.float32),
+            rng.normal(size=(b, h, tt, d)).astype(np.float32),
+            rng.normal(size=(b, h, tt, d)).astype(np.float32),
+            (rng.random((b, h, tt, d)) * 0.5 + 0.4).astype(np.float32),
+            rng.normal(size=(h, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("jax_backend", ["reference", "pallas"])
+@pytest.mark.parametrize("b,h,tt,d", RWKV_SHAPES)
+def test_rwkv6_scan_plain_vs_jax(b, h, tt, d, jax_backend):
+    """``rwkv6_ref``, and ``wkv`` on backend "cuda" with CPU tensors (the
+    plain version, no launch), against the JAX package's ``wkv`` on
+    "reference" and on "pallas" (interpret mode, chunk 16): atol 1e-4."""
+    import jax.numpy as jnp
+    from repro.kernels.rwkv6_scan.ops import wkv as j_wkv
+    from repro_torch.kernels.rwkv6_scan.ops import wkv
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
+    arrs = _rwkv_inputs(np.random.default_rng(b * 100 + tt), b, h, tt, d)
+    kw = {"chunk": 16} if jax_backend == "pallas" else {}
+    want = np.asarray(j_wkv(*map(jnp.asarray, arrs), backend=jax_backend,
+                            **kw))
+    before = kernels.LAUNCHES["rwkv6_scan"]
+    for got in (rwkv6_ref(*map(t, arrs)), wkv(*map(t, arrs), backend="cuda")):
+        assert got.dtype == torch.float32 and got.shape == (b, h, tt, d)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    assert kernels.LAUNCHES["rwkv6_scan"] == before      # plain on CPU
+
+
+def test_rwkv6_scan_wrapper_refuses_cpu_tensors():
+    """The rwkv6_scan launch wrapper validates before it builds or
+    launches: CPU tensors are refused, never taken by the plain
+    version."""
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    before = dict(kernels.LAUNCHES)
+    x = torch.zeros((1, 2, 4, 8))
+    with pytest.raises(ValueError):
+        rwkv6_scan(x, x, x, x, torch.zeros((2, 8)))
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,tt,d", RWKV_SHAPES + [
+    (2, 64, 2048, 64),                       # rwkv6-7b's prefill shape
+    (3, 5, 1, 64), (1, 3, 9, 40)])           # one step; D off the 16 grid
+def test_rwkv6_scan_kernel_on_card(b, h, tt, d):
+    """B8 against its plain version on the card (atol 1e-4, the JAX
+    package's tolerance for this kernel), on contiguous inputs and on
+    ``time_mix``'s layout (values laid out [B, T, H, D], viewed as
+    [B, H, T, D]: strided, no copy); ``wkv`` casts bf16 inputs to float32
+    and returns r's dtype."""
+    _needs_card()
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan, wkv
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
+    arrs = [t(a).cuda() for a in _rwkv_inputs(
+        np.random.default_rng(b * 100 + tt), b, h, tt, d)]
+    want = rwkv6_ref(*arrs)
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in arrs[:4]] + [arrs[4]]
+    n0 = kernels.LAUNCHES["rwkv6_scan"]
+    for args in (arrs, strided):
+        got = rwkv6_scan(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-4
+    assert kernels.LAUNCHES["rwkv6_scan"] == n0 + 2
+    bf = [x.to(torch.bfloat16) for x in arrs]
+    got = wkv(*bf, backend="cuda")
+    assert got.dtype == torch.bfloat16
+    want = rwkv6_ref(*bf)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * max(
+        1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_rwkv6_forward_on_card():
+    """Reduced rwkv6-7b on the card: ``forward`` on backend "cuda" (B8
+    once per layer) against "reference" (the plain scan), atol 1e-4 on
+    the logits with equal argmax, and a decode step continuing from the
+    cuda forward's position 0 equal to the forward there."""
+    _needs_card()
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models import model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_arch("rwkv6-7b"))
+    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(3))
+    gen = torch.Generator("cuda").manual_seed(4)
+    for blk in params["blocks"]:
+        u = blk["mixer"]["time_mix"]["u"]
+        u.copy_(0.5 * torch.randn(u.shape, generator=gen, device="cuda"))
+    toks = torch.randint(0, cfg.vocab, (2, 45), generator=gen, device="cuda")
+    n0 = kernels.LAUNCHES["rwkv6_scan"]
+    got, _ = model.forward(cfg, params, {"tokens": toks}, backend="cuda")
+    assert kernels.LAUNCHES["rwkv6_scan"] == n0 + cfg.n_layers
+    want, _ = model.forward(cfg, params, {"tokens": toks},
+                            backend="reference")
+    assert kernels.LAUNCHES["rwkv6_scan"] == n0 + cfg.n_layers
+    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    cache = model.init_cache(cfg, 2, 45, torch.float32)
+    lg, _ = model.decode_step(cfg, params, cache, toks[:, 0],
+                              torch.zeros(2, dtype=torch.int32,
+                                          device="cuda"))
+    assert float((lg - got[:, 0]).abs().max()) <= 1e-4

@@ -1,5 +1,6 @@
-"""The port's dense-family model (``models/common.py``, ``attention.py``,
-``model.py``) against the JAX package on the CPU, at reduced sizes.
+"""The port's dense-family and ssm-family (rwkv6) models
+(``models/common.py``, ``attention.py``, ``rwkv6.py``, ``model.py``)
+against the JAX package on the CPU, at reduced sizes.
 
 The JAX package's parameters are carried across with
 ``model.params_from_numpy``, and every input is made from a seed with
@@ -9,8 +10,11 @@ the two frameworks' CPU matmuls and reductions sum in other orders
 (measured: at most 1.4e-6 on these shapes); the flash_attention plain
 version (backend "cuda" on CPU tensors) against the Pallas kernel in
 interpret mode at atol 2e-5 (tests/test_kernels.py:28).  Generated
-tokens (argmax) are held equal.
+tokens (argmax) are held equal.  The rwkv6 tests state their own
+tolerances (``RWKV_TOL``).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -242,7 +246,207 @@ def test_reference_fault_pallas_forward_raises(name):
 
 def test_unported_families_raise():
     jcfg = get_arch("phi4-mini-3.8b")
-    for cfg in (jcfg.replace(family="hybrid"), jcfg.replace(family="ssm"),
+    for cfg in (jcfg.replace(family="hybrid"), jcfg.replace(family="vlm"),
                 jcfg.replace(moe=True), jcfg.replace(family="audio")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model.init_params(reduced(cfg), torch.Generator(), device="cpu")
+
+
+# ------------------------------------------------------------------ rwkv6
+
+RWKV = "rwkv6-7b"
+# float32 throughout.  The rwkv6 block is a chain of ~10 matmuls per
+# layer whose outputs (logits up to ~4, WKV states up to ~2) the two
+# frameworks' CPU BLAS sum in other orders: measured at most 9e-6 on the
+# logits and 1.4e-5 on the carried caches of these shapes.  Outputs,
+# logits and losses: atol 5e-5; caches: atol 5e-5 + rtol 1e-5.  The WKV
+# plain version against JAX's ``wkv`` keeps the JAX package's own
+# kernel tolerance, atol 1e-4 (tests/test_kernels.py:325).
+RWKV_TOL = 5e-5
+
+
+@pytest.fixture(scope="module")
+def rwkv():
+    """Reduced rwkv6-7b parameters carried across, with seeded non-trivial
+    ``u``, ``mix_base``, ``mix_k``, ``ln_b`` and ``w0`` (JAX's init makes
+    the first four zero and ``w0`` constant, and a wrong broadcast of any
+    of them would pass on those); the JAX side of every rwkv test run
+    once here, jitted: forward and loss on "reference" and "pallas"
+    (interpret mode), and a 12-token teacher-forced decode."""
+    jcfg, cfg = _cfgs(RWKV)
+    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(7))
+    tree = jax.tree.map(np.asarray, jp)
+    rng = np.random.default_rng(21)
+    tm = tree["blocks"]["mixer"]["time_mix"]
+    cm = tree["blocks"]["mixer"]["channel_mix"]
+    for grp, key, scale, shift in ((tm, "u", 0.5, 0.0),
+                                   (tm, "mix_base", 1.0, 0.0),
+                                   (tm, "ln_b", 0.3, 0.0),
+                                   (tm, "w0", 1.0, -3.0),
+                                   (cm, "mix_k", 1.0, 0.0)):
+        grp[key] = (shift + scale * rng.normal(size=grp[key].shape)).astype(
+            np.float32)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tp = model.params_from_numpy(cfg, tree, device="cpu")
+    toks = rng.integers(0, cfg.vocab, (2, 37)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    fwd, loss = {}, {}
+    for be in ("reference", "pallas"):
+        fwd[be] = np.asarray(jax.jit(lambda p, b: JM.forward(
+            jcfg, p, b, backend=be)[0])(jp, jb))
+        loss[be] = float(jax.jit(lambda p, b: JM.loss_fn(
+            jcfg, p, b, backend=be))(jp, jb))
+    step = jax.jit(lambda p, c, tk: JM.decode_step(
+        jcfg, p, c, tk, jnp.zeros(2, jnp.int32)))
+    jc, _ = JM.init_cache(jcfg, 2, 16, jnp.float32)
+    dec = []
+    for i in range(12):
+        lg, jc = step(jp, jc, jnp.asarray(toks[:, i]))
+        dec.append((np.asarray(lg), jax.tree.map(np.asarray, jc)))
+    return types.SimpleNamespace(jcfg=jcfg, cfg=cfg, jp=jp, tp=tp,
+                                 toks=toks, labels=labels, fwd=fwd,
+                                 loss=loss, dec=dec)
+
+
+def test_rwkv_config_matches_the_jax_package():
+    jcfg, cfg = _cfgs(RWKV)
+    for a, b in ((jcfg, cfg), (j_get_arch(RWKV), get_arch(RWKV))):
+        for f in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                  "d_ff", "vocab", "head_dim", "pattern", "layer_windows",
+                  "norm_kind", "norm_eps", "tie_embeddings"):
+            assert getattr(a, f) == getattr(b, f), f
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim,
+            cfg.vocab) == (2, 64, 4, 16, 512)
+
+
+@pytest.mark.parametrize("groups", [4, 16])
+def test_group_norm(groups):
+    rng = np.random.default_rng(8)
+    x = (3 + 2 * rng.normal(size=(2, 5, 64))).astype(np.float32)
+    w = rng.normal(size=(64,)).astype(np.float32)
+    b = rng.normal(size=(64,)).astype(np.float32)
+    want = jcommon.group_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                              groups=groups, eps=64e-5)
+    got = common.group_norm(t(x), t(w), t(b), groups=groups, eps=64e-5)
+    assert got.dtype == torch.float32
+    _close(got, want)
+    xb = t(x).to(torch.bfloat16)
+    assert common.group_norm(xb, t(w), t(b), groups).dtype == torch.bfloat16
+
+
+def test_rwkv_init_params_shapes_and_scales():
+    """The port's own rwkv init: the JAX tree's shapes per layer (no
+    ``ffn``: the channel mix is the ffn, ``lm_head`` untied), its
+    constants, and the ParamFactory scales within sampling error."""
+    from repro_torch.models import rwkv6
+    jcfg, cfg = _cfgs(RWKV)
+    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    p = model.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    assert set(p) == set(jp) and "lm_head" in p
+    assert set(p["blocks"][0]) == {"mixer", "ln1", "ln2"}
+    for grp in ("time_mix", "channel_mix"):
+        jg = jp["blocks"]["mixer"][grp]
+        assert set(jg) == set(p["blocks"][0]["mixer"][grp])
+        for k, v in jg.items():
+            assert tuple(p["blocks"][1]["mixer"][grp][k].shape) == \
+                v.shape[1:], (grp, k)
+    tm = p["blocks"][0]["mixer"]["time_mix"]
+    assert torch.all(tm["w0"] == -4) and torch.all(tm["u"] == 0)
+    assert torch.all(tm["ln_w"] == 1) and torch.all(tm["mix_base"] == 0)
+    d = cfg.d_model
+    for w, scale in ((tm["wr"], d ** -0.5), (tm["w_lora_a"], 0.01),
+                     (p["blocks"][0]["mixer"]["channel_mix"]["wv"],
+                      (int(3.5 * d) // 32 * 32) ** -0.5),
+                     (p["lm_head"], d ** -0.5)):
+        assert abs(float(w.std()) / scale - 1) < 0.1
+    assert tm["mix_lora_b"].shape == (5 * rwkv6.MIX_LORA_R, 5 * d)
+
+
+def test_rwkv_time_mix_and_channel_mix(rwkv):
+    """Each layer's ``time_mix`` (whole sequence on both backends, and the
+    decode form with a state and a token-shift carry) and
+    ``channel_mix`` (with and without a carry) against the JAX
+    package's, the sequence form on its "reference" and "pallas"
+    (interpret) backends."""
+    from repro.models import rwkv6 as jrwkv
+    from repro_torch.models import rwkv6
+    jcfg, cfg = rwkv.jcfg, rwkv.cfg
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 21, jcfg.d_model)).astype(np.float32)
+    x1 = x[:, :1]
+    last = rng.normal(size=(2, jcfg.d_model)).astype(np.float32)
+    hd = jcfg.d_model // jcfg.n_heads
+    st = rng.normal(size=(2, jcfg.n_heads, hd, hd)).astype(np.float32)
+    for i in range(cfg.n_layers):
+        jblk = jax.tree.map(lambda a: a[i], rwkv.jp["blocks"])["mixer"]
+        tblk = rwkv.tp["blocks"][i]["mixer"]
+        for jbe in ("reference", "pallas"):
+            (want, (_, wl)) = jax.jit(lambda p, a: jrwkv.time_mix(
+                p, jcfg, a, backend=jbe))(jblk["time_mix"], jnp.asarray(x))
+            for be in ("reference", "cuda"):
+                got, (ns, gl) = rwkv6.time_mix(tblk["time_mix"], cfg, t(x),
+                                               backend=be)
+                assert ns is None
+                _close(got, want, RWKV_TOL, f"time_mix {i} {be} {jbe}")
+                _close(gl, wl, 0, f"last_x {i}")
+        want, (jst, wl) = jrwkv.time_mix(
+            jblk["time_mix"], jcfg, jnp.asarray(x1), state=jnp.asarray(st),
+            last_x=jnp.asarray(last))
+        got, (gst, gl) = rwkv6.time_mix(tblk["time_mix"], cfg, t(x1),
+                                        state=t(st), last_x=t(last))
+        _close(got, want, RWKV_TOL, f"time_mix step {i}")
+        np.testing.assert_allclose(gst.numpy(), np.asarray(jst),
+                                   atol=RWKV_TOL, rtol=1e-5)
+        for carry in (None, last):
+            jarg = None if carry is None else jnp.asarray(carry)
+            want, wl = jrwkv.channel_mix(jblk["channel_mix"], jnp.asarray(x),
+                                         last_x=jarg)
+            got, gl = rwkv6.channel_mix(
+                tblk["channel_mix"], t(x),
+                last_x=None if carry is None else t(carry))
+            _close(got, want, RWKV_TOL, f"channel_mix {i}")
+            _close(gl, wl, 0)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_rwkv_forward_and_loss(rwkv, backend):
+    """``forward`` and ``loss_fn`` (backend "cuda": B8's plain version on
+    CPU tensors) against the JAX package's on "reference" and on
+    "pallas" (the rwkv6_scan kernel in interpret mode), equal argmax."""
+    tb = {"tokens": t(rwkv.toks), "labels": t(rwkv.labels)}
+    n0 = kernels.LAUNCHES["rwkv6_scan"]
+    got, aux = model.forward(rwkv.cfg, rwkv.tp, tb, backend=backend)
+    loss = model.loss_fn(rwkv.cfg, rwkv.tp, tb, backend=backend)
+    assert got.shape == (2, 37, rwkv.cfg.vocab) and float(aux) == 0.0
+    for jbe in ("reference", "pallas"):
+        _close(got, rwkv.fwd[jbe], RWKV_TOL, jbe)
+        assert np.array_equal(got.argmax(-1).numpy(),
+                              rwkv.fwd[jbe].argmax(-1))
+        _close(loss, rwkv.loss[jbe], RWKV_TOL, jbe)
+    assert kernels.LAUNCHES["rwkv6_scan"] == n0           # plain on CPU
+
+
+def test_rwkv_decode_step(rwkv):
+    """``init_cache`` and a 12-token teacher-forced ``decode_step``
+    (float32 caches) against the JAX package's: logits and every carried
+    cache leaf at each step; the logits also against the forward's at the
+    same position (the recurrent step against the scan)."""
+    cfg = rwkv.cfg
+    tc = model.init_cache(cfg, 2, 16, torch.float32, device="cpu")
+    jc0, _ = JM.init_cache(rwkv.jcfg, 2, 16, jnp.float32)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in tc.items()} == {
+        k: (v.shape, torch.float32) for k, v in jc0.items()}
+    assert model.init_cache(cfg, 2, 16, device="cpu")["last_tm"].dtype == \
+        torch.bfloat16
+    pos = torch.zeros(2, dtype=torch.int32)
+    for i, (jl, jc) in enumerate(rwkv.dec):
+        tl, tc2 = model.decode_step(cfg, rwkv.tp, tc, t(rwkv.toks[:, i]), pos)
+        assert tc2 is tc                                   # in place
+        _close(tl, jl, RWKV_TOL, f"step {i}")
+        _close(tl, rwkv.fwd["reference"][:, i], RWKV_TOL, f"scan {i}")
+        for k in ("wkv", "last_tm", "last_cm"):
+            np.testing.assert_allclose(tc[k].numpy(), jc[k], atol=RWKV_TOL,
+                                       rtol=1e-5, err_msg=f"{k} step {i}")
