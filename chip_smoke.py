@@ -12,7 +12,8 @@ Phases, each printed as one JSON line:
                  equal argmax; flash_attention at phi4-mini's prefill and
                  gemma3-1b's shapes, atol 2e-5 f32 / 2e-2 bf16;
                  rwkv6_scan at rwkv6-7b's prefill shape and a ragged
-                 one, atol 1e-4), with
+                 one, atol 1e-4; mamba_scan at jamba's prefill shape
+                 and a ragged one, atol 1e-4), with
                  CUDA-event times, the plain version's and a library
                  call's where one computes the same function, and the
                  card's bound for the same work
@@ -39,6 +40,18 @@ Phases, each printed as one JSON line:
                  a float32 cache: a teacher-forced prefix held against the
                  "cuda" forward's logits at every position (the recurrent
                  step against the kernel's scan), then greedy tokens
+  2e. jamba_prefill -- jamba-v0.1-52b at full width, one 8-layer period
+                 (float32 weights from a seed): forward and loss_fn on
+                 backend "cuda" (mamba_scan in the 7 mamba layers,
+                 flash_attention in the attention layer) and "reference";
+                 every block's two outputs from the same input held
+                 within JAMBA_LAYER_TOL, with the MoE layers' drops and
+                 top-2 agreement; the argmax gate of prefill, where a
+                 1e-7 perturbation of the input does not fail it itself
+  2f. jamba_decode -- the same weights at capacity_factor 8 through
+                 decode_step from a float32 cache: a teacher-forced
+                 prefix held against the "cuda" forward's logits, then
+                 greedy tokens
   3. parity   -- the engine at paper_tier_config(scale=1) on one op
                  stream: backend "cuda" on the card vs "reference" on the
                  card and on the CPU; state, counters and per-op results
@@ -148,6 +161,31 @@ RWKV_LAYER_TOL = 1e-5
 # rwkv6_scan's kernel shapes [B, H, T, D]: rwkv6-7b's prefill (the
 # rwkv_prefill phase's) and a ragged one (T off the chunk, D 16)
 RWKV_SCAN, RWKV_RAGGED = (2, 64, 2048, 64), (2, 2, 37, 16)
+# jamba-v0.1-52b at its published width (src/repro/configs/
+# jamba_v0_1_52b.py, arXiv:2403.19887: d 4,096, 32 heads / 8 KV, d_ff
+# 14,336, 16 experts top-2, vocab 65,536 untied, Di 8,192, N 16), cut to
+# one 8-layer period (7 mamba layers, 1 attention layer, 4 MoE FFNs):
+# 13.30 B parameters, 53.2 GB in float32 from JAMBA_SEED; the 32 layers
+# (208 GB in float32, 104 GB in bf16) fit no card.  Prefill of
+# PREFILL_BATCH x PREFILL_SEQ tokens from JAMBA_TOKENS_SEED at the
+# published capacity_factor; decode at JAMBA_DECODE_CF, where no token
+# can drop (E / k = 8), so decode and forward route alike: JAMBA_FORCED
+# teacher-forced tokens, then JAMBA_NEW greedy ones.
+JAMBA_MODEL, JAMBA_LAYERS = "jamba-v0.1-52b", 8
+JAMBA_SEED, JAMBA_TOKENS_SEED = 19, 20
+JAMBA_DECODE_CF = 8.0
+JAMBA_FORCED, JAMBA_NEW = 64, 32
+# Each block's cuda and reference outputs from the same input must agree
+# within this (relative, Frobenius norm): they differ only in B9's (and
+# in the attention block, B7's) float32 summation order.
+JAMBA_LAYER_TOL = 1e-5
+# The end-to-end argmax gate is well-posed where the "cuda" forward
+# against itself, its embeddings perturbed by this (relative), passes it.
+JAMBA_PERTURB = 1e-7
+# mamba_scan's kernel shapes [Bb, T, Di, N]: jamba's prefill (the
+# jamba_prefill phase's) and a ragged one (T off the chunk, Di off the
+# block of 128)
+MAMBA_SCAN, MAMBA_RAGGED = (2, 2048, 8192, 16), (2, 37, 300, 16)
 
 
 def emit(obj: dict) -> None:
@@ -1191,6 +1229,66 @@ def check_rwkv6_scan(rng) -> dict:
             "shapes": shapes}
 
 
+def check_mamba_scan(rng) -> dict:
+    """B9 against its plain version (``mamba_ref``) on the card at jamba's
+    prefill shape and a ragged one, with the main path's inputs: x
+    normal, dt = softplus(-4.6 + 0.5 N(0, 1)) (near 0.01, as the
+    published ``dt_proj_b`` makes it), A = -exp(a_log) of the published
+    init (-1 .. -N on every channel), D normal, and B and C column slices
+    of one [Bb, T, dt_rank + 2N] projection, as ``mamba_layer`` passes
+    them; atol 1e-4, the JAX package's tolerance for this kernel.  No
+    single PyTorch call computes the selective scan (library_ms null).
+    Bound: x, dt and y moved once (B, C, A, D too) at HBM_BYTES_PER_S,
+    and 6 float32 FLOPs per state element and step (dt * A, (dt x) * B,
+    the FMA into h, the FMA into y) at F32_OPS_PER_S."""
+    import torch
+    from repro_torch.kernels.mamba_scan import ops
+    from repro_torch.kernels.mamba_scan.ref import mamba_ref
+    from repro_torch.models.mamba import softplus
+    dev = torch.device("cuda")
+    shapes = []
+    for tag, (bb, tt, di, n) in (("jamba_prefill", MAMBA_SCAN),
+                                 ("ragged", MAMBA_RAGGED)):
+        gen = torch.Generator(dev).manual_seed(int(rng.integers(1 << 30)))
+        r = 256                        # jamba's dt_rank, d_model / 16
+        x = torch.randn((bb, tt, di), generator=gen, device=dev)
+        dt = softplus(torch.randn((bb, tt, di), generator=gen, device=dev)
+                      * 0.5 - 4.6)
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).expand(di, n).contiguous()
+        proj = torch.randn((bb, tt, r + 2 * n), generator=gen, device=dev)
+        bm, cm = proj[..., r:r + n], proj[..., r + n:]
+        d = torch.randn((di,), generator=gen, device=dev)
+        got = ops.mamba_scan(x, dt, a, bm, cm, d)
+        want = mamba_ref(x, dt, a, bm, cm, d)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= 1e-4:
+            raise AssertionError(f"mamba_scan {tag}: max abs err {err} > "
+                                 "1e-4")
+        ms = cuda_ms(lambda: ops.mamba_scan(x, dt, a, bm, cm, d), 10, 2)
+        plain_ms = cuda_ms(lambda: mamba_ref(x, dt, a, bm, cm, d), 2, 1)
+        nbytes = 4 * (3 * x.numel() + 2 * bm.numel() + a.numel() + di)
+        flops = 6 * bb * tt * di * n
+        b_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        b_ops = 1e3 * flops / F32_OPS_PER_S
+        shapes.append({
+            "tag": tag, "shape": [bb, tt, di, n], "max_abs_err": err,
+            "out_max_abs": float(want.abs().max()), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"})
+        del x, dt, proj, got, want
+        torch.cuda.empty_cache()
+    main = shapes[0]     # jamba's prefill: the jamba_prefill phase's
+    return {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:45",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+            "shapes": shapes}
+
+
 def _argmax_gate(got, ref) -> dict:
     """Argmax agreement of two logit tensors [..., V], and the reference's
     top-two gap at every flip."""
@@ -1213,28 +1311,20 @@ def _gate_ok(g: dict) -> bool:
         not g["argmax_flips"] or g["flip_max_gap"] < PREFILL_TIE)
 
 
-def prefill_phase(params, cfg, seed: int = PREFILL_SEED,
-                  device=None) -> dict:
-    """phi4-mini-3.8b's prefill forward at full width on ``params``:
-    ``forward`` and ``loss_fn`` on backend "cuda" (B7 in every layer) and
-    "reference" (the masked softmax), tokens [PREFILL_BATCH, PREFILL_SEQ]
-    from ``seed``.  The argmax must agree at >= 99.9% of positions and
-    every disagreement must be a near-tie (the reference's top-two gap
-    below PREFILL_TIE)."""
+def _forward_legs(cfg, params, batch, expect: dict, phase: str,
+                  profile=("cuda",)):
+    """``loss_fn``, then a timed ``forward``, of ``batch`` on backend
+    "cuda" and on "reference".  Each kernel named in ``expect`` must
+    launch ``expect[name]`` times in the "cuda" forward (the counts are
+    set to 0 just before it) and never in the "reference" one, and the
+    logits must be finite.  The backends in ``profile`` add a profiled
+    forward (table chiprun_out/profile_{phase}_{backend}.txt).  Returns
+    ({backend: its line}, {backend: its logits})."""
     import torch
     from repro_torch import kernels
     from repro_torch.models import model
-    dev = torch.device(device or "cuda")
-    gen = torch.Generator(dev).manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
-                           generator=gen, device=dev)
-    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
-    n_tok = tokens.numel()
-    out = {"phase": "prefill", "model": cfg.name, "layers": cfg.n_layers,
-           "d_model": cfg.d_model, "tokens": list(tokens.shape),
-           "param_gb": sum(p.numel() * p.element_size()
-                           for p in _param_leaves(params)) / 1e9}
-    logits = {}
+    n_tok = batch["tokens"].numel()
+    legs, logits = {}, {}
     for backend in ("cuda", "reference"):
         torch.cuda.reset_peak_memory_stats()
         # loss_fn first: it also warms the backend's kernels and the
@@ -1245,28 +1335,111 @@ def prefill_phase(params, cfg, seed: int = PREFILL_SEED,
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
-        lg, _ = model.forward(cfg, params, batch, backend=backend)
+        lg, aux = model.forward(cfg, params, batch, backend=backend)
         torch.cuda.synchronize()
         dt = time.time() - t0
-        launches = kernels.LAUNCHES["flash_attention"]
-        out[backend] = {
+        leg = legs[backend] = {
             "forward_s": dt, "tokens_per_s": n_tok / dt,
-            "loss_fn_s": t_loss, "loss": loss,
-            "flash_attention_launches_per_forward": launches,
+            "loss_fn_s": t_loss, "loss": loss, "aux": float(aux),
+            **{f"{k}_launches_per_forward": kernels.LAUNCHES[k]
+               for k in expect},
             "max_memory_allocated_gib":
-                torch.cuda.max_memory_allocated() / 2**30,
-            "profiled_forward": _profiled(
+                torch.cuda.max_memory_allocated() / 2**30}
+        if backend in profile:
+            leg["profiled_forward"] = _profiled(
                 lambda: model.forward(cfg, params, batch, backend=backend),
-                f"profile_prefill_{backend}.txt")}
+                f"profile_{phase}_{backend}.txt")
         if not torch.isfinite(lg).all():
-            raise AssertionError(f"prefill ({backend}): non-finite logits")
+            raise AssertionError(f"{phase} ({backend}): non-finite logits")
         logits[backend] = lg
         del lg
-    if out["cuda"]["flash_attention_launches_per_forward"] != cfg.n_layers \
-            or out["reference"]["flash_attention_launches_per_forward"]:
-        raise AssertionError("prefill: flash_attention did not launch once "
-                             "per layer on backend cuda (and never on "
-                             "reference)")
+        print(f"# {phase} {backend}: forward {dt:.2f}s", file=sys.stderr,
+              flush=True)
+    for k, n in expect.items():
+        got = legs["cuda"][f"{k}_launches_per_forward"]
+        if got != n or legs["reference"][f"{k}_launches_per_forward"]:
+            raise AssertionError(
+                f"{phase}: {k} launched {got} times in a cuda forward, not "
+                f"{n} (and must launch never on reference)")
+    return legs, logits
+
+
+def _decode_legs(cfg, params, tokens, ref_logits, n_forced: int,
+                 n_new: int, phase: str):
+    """``decode_step`` from a float32 ``init_cache`` of batch
+    ``tokens.shape[0]``: ``tokens``' first ``n_forced`` positions
+    teacher-forced, their logits held against ``ref_logits``'
+    (``_argmax_gate``); then ``n_new`` greedy tokens from that state,
+    timed one by one.  Raises on non-finite logits or greedy tokens out
+    of range.  Returns (phase line with the gate's keys, the cache)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model
+    dev = tokens.device
+    b = tokens.shape[0]
+    cache = model.init_cache(cfg, b, n_forced + n_new, dtype=torch.float32,
+                             device=dev)
+    pos = torch.zeros(b, dtype=torch.int32, device=dev)
+    forced = []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i in range(n_forced):
+        lg, cache = model.decode_step(cfg, params, cache, tokens[:, i], pos)
+        forced.append(lg)
+        pos += 1
+    forced = torch.stack(forced, dim=1)               # [B, n_forced, V]
+    torch.cuda.synchronize()
+    t_forced = time.time() - t0
+    if not torch.isfinite(forced).all():
+        raise AssertionError(f"{phase}: non-finite logits")
+    gate = _argmax_gate(forced, ref_logits[:, :n_forced])
+    tok = forced[:, -1].argmax(-1)
+    new, walls = [], []
+    for _ in range(n_new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(cfg, params, cache, tok, pos)
+        tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        new.append(tok)
+        pos += 1
+    w = np.asarray(walls) * 1e3
+    new = torch.stack(new, dim=1)
+    if not (0 <= int(new.min()) and int(new.max()) < cfg.vocab):
+        raise AssertionError(f"{phase}: greedy tokens out of range")
+    return {"phase": phase, "model": cfg.name, "batch": b,
+            "cache_dtype": "float32", "teacher_forced": n_forced,
+            "teacher_forced_s": t_forced, **gate, "greedy": n_new,
+            "ms_per_token_p50": float(np.percentile(w, 50)),
+            "ms_per_token_p90": float(np.percentile(w, 90)),
+            "ms_per_token_max": float(w.max()),
+            "tokens_per_s": float(b * n_new / (w.sum() / 1e3)),
+            "greedy_tokens": new.tolist()}, cache
+
+
+def prefill_phase(params, cfg, seed: int = PREFILL_SEED,
+                  device=None) -> dict:
+    """phi4-mini-3.8b's prefill forward at full width on ``params``:
+    ``forward`` and ``loss_fn`` on backend "cuda" (B7 in every layer) and
+    "reference" (the masked softmax), both profiled, tokens
+    [PREFILL_BATCH, PREFILL_SEQ] from ``seed``.  The argmax must agree at
+    >= 99.9% of positions and every disagreement must be a near-tie (the
+    reference's top-two gap below PREFILL_TIE)."""
+    import torch
+    dev = torch.device(device or "cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    out = {"phase": "prefill", "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "tokens": list(tokens.shape),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in _param_leaves(params)) / 1e9}
+    legs, logits = _forward_legs(cfg, params, batch,
+                                 {"flash_attention": cfg.n_layers},
+                                 "prefill", profile=("cuda", "reference"))
+    out.update(legs)
     gate = _argmax_gate(logits["cuda"], logits["reference"])
     out.update(gate)
     out["loss_abs_diff"] = abs(out["cuda"]["loss"]
@@ -1280,12 +1453,24 @@ def prefill_phase(params, cfg, seed: int = PREFILL_SEED,
     return out
 
 
+# Device time by group in a profiled forward: kernels whose name holds one
+# of the strings, and, for the MoE dispatch, the device time of the
+# PyTorch operators it is made of (sorts, searchsorted, index, index_put,
+# scatter, gather; the embedding lookup's index is among them too).
+KERNEL_GROUPS = {"gemm": ("gemm", "Gemm"), "mamba_scan": ("mamba_scan",),
+                 "flash_attention": ("flash_attention",)}
+DISPATCH_OPS = ("aten::sort", "aten::searchsorted", "aten::index",
+                "aten::index_put_", "aten::_index_put_impl_",
+                "aten::scatter_", "aten::gather")
+
+
 def _profiled(fn, table: str) -> dict:
     """One call of ``fn`` under the profiler: its wall time, the device
-    busy share and the device time by kernel (top 8; the whole table to
-    chiprun_out/``table``).  CUPTI's "Command Buffer Full" entries (the
-    host blocked on a full launch queue) carry a device time but are no
-    kernel: they are left out of the busy share and reported apart."""
+    busy share, the device time by kernel (top 8; the whole table to
+    chiprun_out/``table``) and by group (KERNEL_GROUPS, DISPATCH_OPS).
+    CUPTI's "Command Buffer Full" entries (the host blocked on a full
+    launch queue) carry a device time but are no kernel: they are left
+    out of the busy share and reported apart."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1304,9 +1489,15 @@ def _profiled(fn, table: str) -> dict:
     OUT.mkdir(exist_ok=True)
     (OUT / table).write_text(ka.table(sort_by="self_cuda_time_total",
                                       row_limit=60))
+    group_ms = {g: sum(dev_us(e) for e in kern if any(
+        n in e.key for n in names)) / 1e3 for g, names in
+        KERNEL_GROUPS.items()}
+    group_ms["moe_dispatch_ops"] = sum(
+        dev_us(e) for e in ka if e.key in DISPATCH_OPS) / 1e3
     return {"window_s": window,
             "device_busy_share": sum(map(dev_us, kern)) / 1e6 / window,
             "launch_queue_full_ms": sum(map(dev_us, full)) / 1e3,
+            "group_ms": group_ms,
             "top_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in
                        sorted(kern, key=dev_us, reverse=True)[:8]]}
 
@@ -1368,9 +1559,10 @@ def _rwkv_layer_check(params, cfg, tokens) -> dict:
         x = params["embed"][tokens]
         for blk in params["blocks"]:
             tm = blk["mixer"]["time_mix"]
-            y = model._block_apply(cfg, blk, x, None, -1, "cuda")
-            blocks.append(rel(y, model._block_apply(cfg, blk, x, None, -1,
-                                                    "reference")))
+            y, _ = model._block_apply(cfg, blk, x, None, -1, "rwkv", False,
+                                      "cuda")
+            blocks.append(rel(y, model._block_apply(
+                cfg, blk, x, None, -1, "rwkv", False, "reference")[0]))
             h = norm(blk["ln1"], x[:, :RWKV_FORCED], cfg.norm_kind,
                      cfg.norm_eps)
             seq, _ = rwkv6.time_mix(tm, cfg, h, backend="cuda")
@@ -1406,14 +1598,12 @@ def rwkv_prefill_phase(params, cfg, us, seed: int = RWKV_TOKENS_SEED,
     (``_gate_ok``).  Returns (phase line, tokens, the "cuda" forward's
     logits with u zero); leaves u zero."""
     import torch
-    from repro_torch import kernels
     from repro_torch.models import model
     dev = torch.device(device or "cuda")
     gen = torch.Generator(dev).manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
                            generator=gen, device=dev)
     batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
-    n_tok = tokens.numel()
     out = {"phase": "rwkv_prefill", "model": cfg.name,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "heads": cfg.n_heads, "head_dim": cfg.d_model // cfg.n_heads,
@@ -1421,41 +1611,10 @@ def rwkv_prefill_phase(params, cfg, us, seed: int = RWKV_TOKENS_SEED,
            "param_gb": sum(p.numel() * p.element_size()
                            for p in _param_leaves(params)) / 1e9}
     _set_u(params, us)
-    logits = {}
-    for backend in ("cuda", "reference"):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        loss = float(model.loss_fn(cfg, params, batch, backend=backend))
-        t_loss = time.time() - t0
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        lg, _ = model.forward(cfg, params, batch, backend=backend)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        out[backend] = {
-            "forward_s": dt, "tokens_per_s": n_tok / dt,
-            "loss_fn_s": t_loss, "loss": loss,
-            "rwkv6_scan_launches_per_forward":
-                kernels.LAUNCHES["rwkv6_scan"],
-            "max_memory_allocated_gib":
-                torch.cuda.max_memory_allocated() / 2**30}
-        if backend == "cuda":
-            out[backend]["profiled_forward"] = _profiled(
-                lambda: model.forward(cfg, params, batch, backend=backend),
-                "profile_rwkv_prefill_cuda.txt")
-        if not torch.isfinite(lg).all():
-            raise AssertionError(f"rwkv_prefill ({backend}): non-finite "
-                                 "logits")
-        logits[backend] = lg
-        del lg
-        print(f"# rwkv_prefill {backend}: forward {dt:.2f}s",
-              file=sys.stderr, flush=True)
-    if out["cuda"]["rwkv6_scan_launches_per_forward"] != cfg.n_layers \
-            or out["reference"]["rwkv6_scan_launches_per_forward"]:
-        raise AssertionError("rwkv_prefill: rwkv6_scan did not launch once "
-                             "per layer on backend cuda (and never on "
-                             "reference)")
+    legs, logits = _forward_legs(cfg, params, batch,
+                                 {"rwkv6_scan": cfg.n_layers},
+                                 "rwkv_prefill")
+    out.update(legs)
     out["u_nonzero"] = _argmax_gate(logits["cuda"], logits["reference"])
     out["u_nonzero"]["loss_abs_diff"] = abs(out["cuda"]["loss"]
                                             - out["reference"]["loss"])
@@ -1491,62 +1650,181 @@ def rwkv_prefill_phase(params, cfg, us, seed: int = RWKV_TOKENS_SEED,
 def rwkv_decode_phase(params, cfg, tokens, fwd_logits) -> dict:
     """``decode_step`` at rwkv6-7b's full width (the published init, u
     zero, as ``rwkv_prefill_phase`` leaves it; the decode form with a
-    non-zero u is held per layer there) from a float32 ``init_cache`` of
-    batch PREFILL_BATCH: the first RWKV_FORCED tokens of the prefill
-    batch teacher-forced, each position's logits held against the "cuda"
-    forward's (``fwd_logits``) by ``_gate_ok``; then
-    RWKV_NEW greedy tokens from that state, timed one by one.  Decode
-    runs no kernel in either package (``_wkv_step`` is plain tensor
-    code), so there is one run, no backend legs."""
-    import numpy as np
-    import torch
-    from repro_torch.models import model
-    dev = tokens.device
-    b = tokens.shape[0]
-    cache = model.init_cache(cfg, b, RWKV_FORCED + RWKV_NEW,
-                             dtype=torch.float32, device=dev)
-    pos = torch.zeros(b, dtype=torch.int32, device=dev)
-    forced = []
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for i in range(RWKV_FORCED):
-        lg, cache = model.decode_step(cfg, params, cache, tokens[:, i], pos)
-        forced.append(lg)
-        pos += 1
-    forced = torch.stack(forced, dim=1)               # [B, FORCED, V]
-    torch.cuda.synchronize()
-    t_forced = time.time() - t0
-    if not torch.isfinite(forced).all():
-        raise AssertionError("rwkv_decode: non-finite logits")
-    gate = _argmax_gate(forced, fwd_logits[:, :RWKV_FORCED])
-    tok = forced[:, -1].argmax(-1)
-    new, walls = [], []
-    for _ in range(RWKV_NEW):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lg, cache = model.decode_step(cfg, params, cache, tok, pos)
-        tok = lg.argmax(-1)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        new.append(tok)
-        pos += 1
-    w = np.asarray(walls) * 1e3
-    new = torch.stack(new, dim=1)
-    out = {"phase": "rwkv_decode", "model": cfg.name, "batch": b,
-           "cache_dtype": "float32", "teacher_forced": RWKV_FORCED,
-           "teacher_forced_s": t_forced, **gate,
-           "greedy": RWKV_NEW,
-           "ms_per_token_p50": float(np.percentile(w, 50)),
-           "ms_per_token_p90": float(np.percentile(w, 90)),
-           "ms_per_token_max": float(w.max()),
-           "tokens_per_s": float(b * RWKV_NEW / (w.sum() / 1e3)),
-           "greedy_tokens": new.tolist(),
-           "state_max_abs": float(cache["wkv"].abs().max())}
-    if not (0 <= int(new.min()) and int(new.max()) < cfg.vocab):
-        raise AssertionError("rwkv_decode: greedy tokens out of range")
-    if not _gate_ok(gate):
+    non-zero u is held per layer there), ``_decode_legs`` of batch
+    PREFILL_BATCH: the first RWKV_FORCED tokens of the prefill batch
+    teacher-forced, each position's logits held against the "cuda"
+    forward's (``fwd_logits``) by ``_gate_ok``; then RWKV_NEW greedy
+    tokens.  Decode runs no kernel in either package (``_wkv_step`` is
+    plain tensor code), so there is one run, no backend legs."""
+    out, cache = _decode_legs(cfg, params, tokens, fwd_logits, RWKV_FORCED,
+                              RWKV_NEW, "rwkv_decode")
+    out["state_max_abs"] = float(cache["wkv"].abs().max())
+    if not _gate_ok(out):
         emit(out)
         raise AssertionError("rwkv_decode: the teacher-forced decode's "
+                             "argmax differs from the forward's beyond "
+                             "near-ties")
+    return out
+
+
+def jamba_config():
+    """jamba-v0.1-52b at its published width, cut to one period."""
+    from repro_torch.configs.base import get_arch
+    return get_arch(JAMBA_MODEL).replace(n_layers=JAMBA_LAYERS)
+
+
+def _jamba_layer_check(params, cfg, tokens) -> dict:
+    """The kernels held against their plain versions inside the model,
+    layer by layer, on the model's own activations, from the same input
+    (the "cuda" leg's hidden state): each layer's mixer alone on backend
+    "cuda" and "reference" (B9 in a mamba layer, B7 in the attention
+    layer), and each whole block, residual and FFN included.  Per layer:
+    the relative errors (Frobenius norm) of the mixer and of the block,
+    the residual stream's RMS after the block; per MoE block: the tokens
+    dropped on each leg and the share of tokens whose top-2 experts
+    agree.  After the first MoE block the residual runs thousands of
+    times larger than a mixer's output (``init_moe``'s 1/sqrt(E) expert
+    scale), so only the mixer's error sees a kernel's fault there."""
+    import torch
+    from repro_torch.models import attention, mamba, model
+    from repro_torch.models.common import norm
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    out = {"kind": [], "mixer_rel_err": [], "block_rel_err": [],
+           "residual_rms": [], "moe": [], "tol": JAMBA_LAYER_TOL}
+    with torch.no_grad():
+        x = params["embed"][tokens]
+        b, s = tokens.shape
+        pos = torch.arange(s, device=x.device)[None].expand(b, s)
+        for l, (blk, (kind, use_moe, window)) in enumerate(
+                zip(params["blocks"], model.layer_plan(cfg))):
+            h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+            mix = [mamba.mamba_layer(blk["mixer"], cfg, h, backend=bk)[0]
+                   if kind == "mamba" else attention.attention(
+                       blk["mixer"], cfg, h, pos, window, backend=bk)
+                   for bk in ("cuda", "reference")]
+            out["mixer_rel_err"].append(rel(*mix))
+            del h, mix
+            y, ex = model._block_apply(cfg, blk, x, pos, window, kind,
+                                       use_moe, "cuda")
+            yr, exr = model._block_apply(cfg, blk, x, pos, window, kind,
+                                         use_moe, "reference")
+            out["kind"].append(kind + ("+moe" if use_moe else "+ffn"))
+            out["block_rel_err"].append(rel(y, yr))
+            out["residual_rms"].append(float(y.pow(2).mean().sqrt()))
+            if use_moe:
+                agree = (ex["experts"].sort(-1).values
+                         == exr["experts"].sort(-1).values).all(-1)
+                out["moe"].append({
+                    "layer": l, "dropped": float(ex["dropped"]),
+                    "dropped_reference": float(exr["dropped"]),
+                    "top2_agree": float(agree.float().mean()),
+                    "aux_loss": float(ex["aux_loss"])})
+            del yr, exr
+            x = y
+    return out
+
+
+def jamba_prefill_phase(params, cfg, seed: int = JAMBA_TOKENS_SEED,
+                        device=None):
+    """jamba's prefill forward at full width (one period), tokens
+    [PREFILL_BATCH, PREFILL_SEQ] from ``seed``, at the published
+    capacity_factor: ``loss_fn`` and ``forward`` on backend "cuda" (B9 in
+    the 7 mamba layers, B7 in the attention layer; profiled) and
+    "reference" (the plain scan and the masked softmax), timed; B9 and B7
+    must launch once per such layer on "cuda" and never on "reference",
+    the logits must be finite, and every layer's mixer and block must
+    agree within JAMBA_LAYER_TOL (``_jamba_layer_check``).  The
+    end-to-end argmax gate (``_gate_ok``) is held where it is well-posed:
+    if it fails, the "cuda" forward against itself with its embeddings
+    perturbed by JAMBA_PERTURB (relative) must fail it too (the random
+    model then amplifies float32 rounding; recorded, not gated), else
+    the failure is a fault.  Returns (phase line, tokens)."""
+    import torch
+    from repro_torch.models import model
+    dev = torch.device(device or "cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    kinds = [k for k, _, _ in model.layer_plan(cfg)]
+    out = {"phase": "jamba_prefill", "model": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "d_inner": cfg.ssm_expand * cfg.d_model, "state": cfg.ssm_state,
+           "experts": cfg.n_experts, "top_k": cfg.top_k,
+           "capacity_factor": cfg.capacity_factor,
+           "tokens": list(tokens.shape),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in _param_leaves(params)) / 1e9}
+    legs, logits = _forward_legs(
+        cfg, params, batch, {"mamba_scan": kinds.count("mamba"),
+                             "flash_attention": kinds.count("attn")},
+        "jamba_prefill")
+    out.update(legs)
+    gate = _argmax_gate(logits["cuda"], logits["reference"])
+    gate["loss_abs_diff"] = abs(legs["cuda"]["loss"]
+                                - legs["reference"]["loss"])
+    out["end_to_end"] = gate
+    del logits["reference"]
+    torch.cuda.empty_cache()
+    emb = params["embed"]
+    noise = torch.randn(emb.shape, generator=torch.Generator(
+        dev).manual_seed(seed + 1), device=dev)
+    perturbed = {**params, "embed": emb + JAMBA_PERTURB * emb * noise}
+    del noise
+    with torch.no_grad():
+        plg, _ = model.forward(cfg, perturbed, batch, backend="cuda")
+    out["perturbed_self"] = _argmax_gate(plg, logits["cuda"])
+    del perturbed, plg, logits
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["layer_check"] = _jamba_layer_check(params, cfg, tokens)
+    out["layer_check"]["seconds"] = time.time() - t0
+    worst = max(out["layer_check"]["mixer_rel_err"]
+                + out["layer_check"]["block_rel_err"])
+    if not worst <= JAMBA_LAYER_TOL:
+        emit(out)
+        raise AssertionError(f"jamba_prefill: a layer's cuda and reference "
+                             f"outputs differ by {worst} > "
+                             f"{JAMBA_LAYER_TOL}")
+    out["end_to_end_gated"] = _gate_ok(out["perturbed_self"])
+    if out["end_to_end_gated"] and not _gate_ok(gate):
+        emit(out)
+        raise AssertionError("jamba_prefill: the backends' argmax differ "
+                             "beyond near-ties, while a 1e-7 perturbation "
+                             "of the input does not part them")
+    return out, tokens
+
+
+def jamba_decode_phase(params, cfg, tokens) -> dict:
+    """``decode_step`` at jamba's full width (one period) at
+    capacity_factor JAMBA_DECODE_CF, ``_decode_legs`` of batch
+    PREFILL_BATCH: the first JAMBA_FORCED tokens of the prefill batch
+    teacher-forced, each position's logits held against a "cuda"
+    ``forward`` of the same tokens at the same capacity_factor by
+    ``_gate_ok``; then JAMBA_NEW greedy tokens.  The decode runs no
+    kernel in either package (the mamba layers' one-token update, the
+    dense-cache attention), so there is one run."""
+    from repro_torch import kernels
+    from repro_torch.models import model
+    cfg = cfg.replace(capacity_factor=JAMBA_DECODE_CF)
+    prefix = tokens[:, :JAMBA_FORCED]
+    kernels.reset_launches()
+    fwd, _ = model.forward(cfg, params, {"tokens": prefix}, backend="cuda")
+    fwd_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    kernels.reset_launches()
+    out, cache = _decode_legs(cfg, params, prefix, fwd, JAMBA_FORCED,
+                              JAMBA_NEW, "jamba_decode")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in _param_leaves(params))
+    out.update({
+        "layers": cfg.n_layers, "capacity_factor": cfg.capacity_factor,
+        "forward_launches": fwd_launches,
+        "decode_launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+        "weights_read_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S,
+        "ssm_state_max_abs": float(cache["ssm_h"].abs().max())})
+    if not _gate_ok(out):
+        emit(out)
+        raise AssertionError("jamba_decode: the teacher-forced decode's "
                              "argmax differs from the forward's beyond "
                              "near-ties")
     return out
@@ -1816,6 +2094,7 @@ def main() -> int:
     rows += check_tier_compact(full, embed_cfg, rng)
     rows.append(check_flash_attention(rng))
     rows.append(check_rwkv6_scan(rng))
+    rows.append(check_mamba_scan(rng))
     emit({"phase": "kernels", "rows": rows})
 
     # the model phases: phi4-mini-3.8b at full width, prefill and serving
@@ -1847,6 +2126,21 @@ def main() -> int:
     emit(rpre)
     emit(rwkv_decode_phase(params, rcfg, rtok, rlogits))
     del params, us, rtok, rlogits
+    torch.cuda.empty_cache()
+
+    # jamba-v0.1-52b at full width, one period: the prefill forward on B9
+    # and B7, then the hybrid decode
+    jcfg = jamba_config()
+    t0 = time.time()
+    params = model.init_params(jcfg, torch.Generator("cuda").manual_seed(
+        JAMBA_SEED))
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    jpre, jtok = jamba_prefill_phase(params, jcfg)
+    jpre["init_params_s"] = t_init
+    emit(jpre)
+    emit(jamba_decode_phase(params, jcfg, jtok))
+    del params, jtok
     torch.cuda.empty_cache()
     line, base = engine_parity(BATCH)
     emit(line)
@@ -1898,7 +2192,8 @@ def main() -> int:
                      diagnose=True))
     # launches: each kernel's count in the full-size run of its path
     # (B7: per "cuda" forward of the prefill phase; B8: of rwkv_prefill;
-    # B6: its entry point's call on the serve phase's live pools)
+    # B9: of jamba_prefill; B6: its entry point's call on the serve
+    # phase's live pools)
     where = {"clock_update": full_res, "msc_score": full_res,
              "select_gather_rows": fq_res, "scatter_rows": fq_res,
              "gather_rows": emb["cuda"]}
@@ -1907,6 +2202,8 @@ def main() -> int:
             r["launches"] = pre["cuda"]["flash_attention_launches_per_forward"]
         elif r["name"] == "rwkv6_scan":
             r["launches"] = rpre["cuda"]["rwkv6_scan_launches_per_forward"]
+        elif r["name"] == "mamba_scan":
+            r["launches"] = jpre["cuda"]["mamba_scan_launches_per_forward"]
         elif r["name"] != "paged_attention":
             r["launches"] = where[r["name"]]["launches"][r["name"]]
     emit({"phase": "done", "elapsed_s": time.time() - t_start})

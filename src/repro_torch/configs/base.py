@@ -4,8 +4,9 @@ JAX package's ``configs/base.py``): ``ModelConfig``, ``get_arch`` and
 
 Only the architectures the port runs are registered (phi4-mini-3.8b, and
 gemma3-1b for the windowed-attention tests and kernel shapes; rwkv6-7b,
-the ssm family); the other families wait for the slices that port their
-layers (ROADMAP Queue 1).
+the ssm family; jamba-v0.1-52b, the hybrid family; granite-moe-3b-a800m,
+the moe family); the vlm and audio families wait for the slices that
+port their layers (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -98,8 +99,9 @@ def all_archs() -> dict:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from repro_torch.configs import (gemma3_1b, phi4_mini_3_8b,  # noqa: F401
-                                     rwkv6_7b)
+    from repro_torch.configs import (  # noqa: F401
+        gemma3_1b, granite_moe_3b_a800m, jamba_v0_1_52b, phi4_mini_3_8b,
+        rwkv6_7b)
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

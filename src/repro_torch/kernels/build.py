@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("clock_update", "msc_score", "tier_compact", "flash_attention",
-           "paged_attention", "rwkv6_scan")
+           "paged_attention", "rwkv6_scan", "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

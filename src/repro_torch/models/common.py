@@ -49,6 +49,10 @@ class ParamInit:
     def full(self, shape, value: float) -> torch.Tensor:
         return torch.full(shape, value, device=self.device, dtype=self.dtype)
 
+    def const(self, value: torch.Tensor) -> torch.Tensor:
+        """A copy of ``value`` in the init's dtype, on its device."""
+        return value.to(device=self.device, dtype=self.dtype).clone()
+
 
 def init_ffn(pi: ParamInit, d_model: int, d_ff: int, kind: str) -> dict:
     if kind == "swiglu":

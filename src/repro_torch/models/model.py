@@ -1,21 +1,24 @@
-"""The model: init / forward / loss / decode for the dense and ssm
-(rwkv6) families (the port's copy of the JAX package's
-``models/model.py``).
+"""The model: init / forward / loss / decode for the dense, moe, ssm
+(rwkv6) and hybrid (jamba) families (the port's copy of the JAX
+package's ``models/model.py``).
 
 Parameters are a dict: ``embed`` [V, D], ``final_norm``, ``lm_head`` when
 embeddings are untied, and ``blocks``, a list with one dict per layer in
-the JAX package's layouts: dense ``mixer`` (wq/wk/wv/wo), ``ffn``,
-``ln1``, ``ln2``; ssm ``mixer`` (``time_mix``, ``channel_mix``: the
-channel mix is its ffn), ``ln1``, ``ln2``.  ``params_from_numpy`` carries
-a JAX parameter pytree (stacked [L, ...] blocks) across.  The JAX package
-scans its layers with the per-layer window as a traced scan input; here
-the layers are a Python loop and each window is a Python int
-(``cfg.layer_windows``), so backend "cuda" runs the flash_attention
-kernel (B7) in every dense layer, and the rwkv6_scan kernel (B8) in
-every ssm layer.
+the JAX package's layouts: ``mixer`` (attention wq/wk/wv/wo, mamba's
+in_proj ... out_proj, or rwkv's ``time_mix`` and ``channel_mix``: the
+channel mix is its ffn), ``ffn`` (SwiGLU, or the MoE router and
+experts), ``ln1``, ``ln2``.  ``params_from_numpy`` carries a JAX
+parameter pytree across: stacked [L, ...] blocks, or the hybrid
+family's superblocks ``blocks["pos{i}"]`` stacked [L / period, ...].
+The JAX package scans its layers (the hybrid family by superblocks of
+its 8-layer pattern); here the layers are a Python loop and each window
+is a Python int (``cfg.layer_windows``; -1 in the hybrid family, as
+there), so backend "cuda" runs the flash_attention kernel (B7) in every
+attention layer, the rwkv6_scan kernel (B8) in every rwkv layer and the
+mamba_scan kernel (B9) in every mamba layer.
 
-The MoE, hybrid (jamba), vlm and audio families raise
-``NotImplementedError`` naming their ROADMAP item.
+The vlm and audio families raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,13 +28,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (ParamInit, ffn, init_ffn, init_norm,
                                        norm)
 
 _TODO = {
-    "moe": "ROADMAP Queue 1 item 12 / slice 5: moe.py with jamba",
-    "hybrid": "ROADMAP Queue 1 item 12 / slice 5: jamba forward (B9)",
     "vlm": "ROADMAP Queue 1 item 12: M-RoPE (qwen2-vl)",
     "audio": "ROADMAP Queue 1 item 12: encoder-decoder (whisper)",
 }
@@ -39,24 +42,44 @@ _TODO = {
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the families this slice of the port does not run."""
-    fam = "moe" if cfg.moe else cfg.family
-    if fam not in ("dense", "ssm") or cfg.m_rope or cfg.embed_inputs:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.m_rope \
+            or cfg.embed_inputs:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported yet: "
-            f"{_TODO.get(fam, _TODO['vlm'])}")
+            f"{_TODO.get(cfg.family, _TODO['vlm'])}")
+
+
+def layer_plan(cfg: ModelConfig) -> list:
+    """(kind, use_moe, window) of every layer, as the JAX package's scans
+    give them: the hybrid family tiles its pattern, with MoE at the
+    pattern positions i where i % moe_every == moe_every - 1 and the
+    window -1; the uniform families use one kind, MoE in every layer when
+    moe_every is 1, and ``cfg.layer_windows``."""
+    if cfg.family == "hybrid":
+        period = len(cfg.pattern)
+        return [(cfg.pattern[l % period], cfg.moe and (
+            (l % period) % cfg.moe_every == cfg.moe_every - 1), -1)
+            for l in range(cfg.n_layers)]
+    kind = "rwkv" if cfg.family == "ssm" else "attn"
+    use_moe = cfg.moe and cfg.moe_every == 1
+    return [(kind, use_moe, int(w)) for w in cfg.layer_windows]
 
 
 # ------------------------------------------------------------------- init
 
-def _init_block(pi: ParamInit, cfg: ModelConfig) -> dict:
-    if cfg.family == "ssm":           # rwkv's channel mix is its ffn
-        return {"mixer": rwkv_mod.init_rwkv_layer(pi, cfg),
-                "ln1": init_norm(pi, cfg.d_model, cfg.norm_kind),
-                "ln2": init_norm(pi, cfg.d_model, cfg.norm_kind)}
-    return {"mixer": attn_mod.init_attention(pi, cfg),
-            "ffn": init_ffn(pi, cfg.d_model, cfg.d_ff, cfg.ffn_kind),
-            "ln1": init_norm(pi, cfg.d_model, cfg.norm_kind),
-            "ln2": init_norm(pi, cfg.d_model, cfg.norm_kind)}
+def _init_block(pi: ParamInit, cfg: ModelConfig, kind: str,
+                use_moe: bool) -> dict:
+    init_mixer = {"attn": attn_mod.init_attention,
+                  "mamba": mamba_mod.init_mamba_layer,
+                  "rwkv": rwkv_mod.init_rwkv_layer}[kind]
+    tree = {"mixer": init_mixer(pi, cfg)}
+    if use_moe:
+        tree["ffn"] = moe_mod.init_moe(pi, cfg)
+    elif kind != "rwkv":              # rwkv's channel mix is its ffn
+        tree["ffn"] = init_ffn(pi, cfg.d_model, cfg.d_ff, cfg.ffn_kind)
+    tree["ln1"] = init_norm(pi, cfg.d_model, cfg.norm_kind)
+    tree["ln2"] = init_norm(pi, cfg.d_model, cfg.norm_kind)
+    return tree
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -70,14 +93,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = pi.dense((cfg.d_model, cfg.vocab))
     params["final_norm"] = init_norm(pi, cfg.d_model, cfg.norm_kind)
-    params["blocks"] = [_init_block(pi, cfg) for _ in range(cfg.n_layers)]
+    params["blocks"] = [_init_block(pi, cfg, kind, use_moe)
+                        for kind, use_moe, _ in layer_plan(cfg)]
     return params
 
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
-    """A JAX parameter pytree (numpy leaves; ``blocks`` stacked [L, ...])
-    -> the port's parameters on ``device`` (None: the card), one dict per
-    layer.  Copies every leaf."""
+    """A JAX parameter pytree (numpy leaves; ``blocks`` stacked [L, ...],
+    or for the hybrid family ``blocks["pos{i}"]`` stacked [L / period,
+    ...]) -> the port's parameters on ``device`` (None: the card), one
+    dict per layer (layer ``blk * period + i`` from ``pos{i}[blk]``).
+    Copies every leaf."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -92,27 +118,42 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
         return torch.from_numpy(np.array(x[i], copy=True)).to(dev)
 
     out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [layer(tree["blocks"], i) for i in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        period = len(cfg.pattern)
+        out["blocks"] = [layer(tree["blocks"][f"pos{l % period}"],
+                               l // period) for l in range(cfg.n_layers)]
+    else:
+        out["blocks"] = [layer(tree["blocks"], i)
+                         for i in range(cfg.n_layers)]
     return out
 
 
 # ---------------------------------------------------------------- forward
 
 def _block_apply(cfg: ModelConfig, p, x, positions, window: int,
-                 backend: str):
+                 kind: str, use_moe: bool, backend: str):
+    """One block.  Returns (x, extras): the MoE layer's ``aux_loss``,
+    ``dropped`` and ``experts`` (each token's top-k) when ``use_moe``,
+    else {}."""
     h = norm(p["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    if cfg.family == "ssm":
-        mix, _ = rwkv_mod.time_mix(p["mixer"]["time_mix"], cfg, h,
-                                   backend=backend)
-    else:
+    if kind == "attn":
         mix = attn_mod.attention(p["mixer"], cfg, h, positions, window,
                                  backend=backend)
+    elif kind == "mamba":
+        mix, _ = mamba_mod.mamba_layer(p["mixer"], cfg, h, backend=backend)
+    else:                             # rwkv time mix
+        mix, _ = rwkv_mod.time_mix(p["mixer"]["time_mix"], cfg, h,
+                                   backend=backend)
     x = x + mix
     h = norm(p["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-    if cfg.family == "ssm":
+    extras = {}
+    if kind == "rwkv":
         out, _ = rwkv_mod.channel_mix(p["mixer"]["channel_mix"], h)
-        return x + out
-    return x + ffn(p["ffn"], h, cfg.ffn_kind, cfg.act)
+    elif use_moe:
+        out, extras = moe_mod.moe_ffn(p["ffn"], cfg, h)
+    else:
+        out = ffn(p["ffn"], h, cfg.ffn_kind, cfg.act)
+    return x + out, extras
 
 
 def _lm_logits(cfg: ModelConfig, params, x):
@@ -123,9 +164,9 @@ def _lm_logits(cfg: ModelConfig, params, x):
 def forward(cfg: ModelConfig, params, batch: dict, *,
             backend: str = "reference"):
     """batch: ``tokens`` [B, S] (and optionally ``positions`` [B, S]; the
-    ssm family reads none).  Returns (logits [B, S, V], aux), aux a
-    float32 zero for these families.  Evaluation only: no gradient is
-    kept."""
+    mamba and rwkv layers read none).  Returns (logits [B, S, V], aux),
+    aux the float32 sum of the MoE layers' load-balancing losses (zero
+    without MoE).  Evaluation only: no gradient is kept."""
     check_supported(cfg)
     with torch.no_grad():
         x = params["embed"][batch["tokens"].to(torch.int64)]
@@ -133,11 +174,16 @@ def forward(cfg: ModelConfig, params, batch: dict, *,
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        for p, window in zip(params["blocks"], cfg.layer_windows):
-            x = _block_apply(cfg, p, x, positions, int(window), backend)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p, (kind, use_moe, window) in zip(params["blocks"],
+                                              layer_plan(cfg)):
+            x, extras = _block_apply(cfg, p, x, positions, window, kind,
+                                     use_moe, backend)
+            if use_moe:
+                aux = aux + extras["aux_loss"].to(torch.float32)
         x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
         logits = _lm_logits(cfg, params, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, backend: str = "reference"):
@@ -160,22 +206,34 @@ def loss_fn(cfg: ModelConfig, params, batch, *, backend: str = "reference"):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Decode cache on ``device`` (None: the card).  Dense: {"k", "v"}
-    [L, B, Hkv, S_max, hd]; ssm: {"wkv"} [L, B, H, hd, hd] float32 and
-    {"last_tm", "last_cm"} [L, B, D] in ``dtype`` (``max_seq`` unused)."""
+    """Decode cache on ``device`` (None: the card), in the JAX package's
+    layouts.  Dense and moe: {"k", "v"} [L, B, Hkv, S_max, hd]; ssm:
+    {"wkv"} [L, B, H, hd, hd] float32 and {"last_tm", "last_cm"} [L, B, D]
+    in ``dtype`` (``max_seq`` unused); hybrid, per superblock of the
+    pattern (nb = L / period): {"k", "v"} [nb, n_attn, B, Hkv, S_max,
+    hd], {"ssm_h"} [nb, n_mamba, B, Di, N] float32 and {"conv"}
+    [nb, n_mamba, B, K-1, Di] in ``dtype``."""
     check_supported(cfg)
     dev = resolve_device(device)
+    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
     if cfg.family == "ssm":
         d, h = cfg.d_model, cfg.n_heads
-        return {"wkv": torch.zeros((cfg.n_layers, batch, h, d // h, d // h),
-                                   dtype=torch.float32, device=dev),
-                "last_tm": torch.zeros((cfg.n_layers, batch, d), dtype=dtype,
-                                       device=dev),
-                "last_cm": torch.zeros((cfg.n_layers, batch, d), dtype=dtype,
-                                       device=dev)}
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        return {"wkv": zeros((cfg.n_layers, batch, h, d // h, d // h),
+                             torch.float32),
+                "last_tm": zeros((cfg.n_layers, batch, d)),
+                "last_cm": zeros((cfg.n_layers, batch, d))}
+    kv = (batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+    if cfg.family == "hybrid":
+        period = len(cfg.pattern)
+        nb = cfg.n_layers // period
+        n_attn = sum(1 for k in cfg.pattern if k == "attn")
+        n_mamba = period - n_attn
+        di = cfg.ssm_expand * cfg.d_model
+        return {"k": zeros((nb, n_attn, *kv)), "v": zeros((nb, n_attn, *kv)),
+                "ssm_h": zeros((nb, n_mamba, batch, di, cfg.ssm_state),
+                               torch.float32),
+                "conv": zeros((nb, n_mamba, batch, cfg.ssm_conv - 1, di))}
+    return {"k": zeros((cfg.n_layers, *kv)), "v": zeros((cfg.n_layers, *kv))}
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
@@ -184,26 +242,36 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
     ssm family ignores ``pos``, as the JAX package does).  Returns
     (logits [B, V], cache); the cache is updated IN PLACE, its carried
     values stored in the cache's dtype (the JAX package returns the ssm
-    family's ``last_tm``/``last_cm`` in the activations' dtype).  No
-    kernel runs in decode: ``backend`` is not read."""
+    family's ``last_tm``/``last_cm`` and the hybrid family's ``conv`` in
+    the activations' dtype).  No kernel runs in decode: ``backend`` is
+    not read."""
     check_supported(cfg)
     if cfg.family == "ssm":
         return _decode_rwkv(cfg, params, cache, tokens)
+    if cfg.family == "hybrid":
+        return _decode_hybrid(cfg, params, cache, tokens, pos)
     return _decode_dense(cfg, params, cache, tokens, pos)
+
+
+def _ffn_or_moe(cfg: ModelConfig, p, h, use_moe: bool):
+    if use_moe:
+        out, _ = moe_mod.moe_ffn(p["ffn"], cfg, h)
+        return out
+    return ffn(p["ffn"], h, cfg.ffn_kind, cfg.act)
 
 
 def _decode_dense(cfg: ModelConfig, params, cache, tokens, pos):
     with torch.no_grad():
         x = params["embed"][tokens.to(torch.int64)][:, None]   # [B, 1, D]
-        for i, (blk, window) in enumerate(zip(params["blocks"],
-                                              cfg.layer_windows)):
+        for i, (blk, (_, use_moe, window)) in enumerate(
+                zip(params["blocks"], layer_plan(cfg))):
             h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
             mix, _, _ = attn_mod.decode_attention_dense(
                 blk["mixer"], cfg, h, cache["k"][i], cache["v"][i], pos,
-                int(window))
+                window)
             x = x + mix
             h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-            x = x + ffn(blk["ffn"], h, cfg.ffn_kind, cfg.act)
+            x = x + _ffn_or_moe(cfg, blk, h, use_moe)
         x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
         return _lm_logits(cfg, params, x)[:, 0], cache
 
@@ -224,5 +292,34 @@ def _decode_rwkv(cfg: ModelConfig, params, cache, tokens):
             cache["wkv"][i].copy_(wkv_s)
             cache["last_tm"][i].copy_(ltm)
             cache["last_cm"][i].copy_(lcm)
+        x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        return _lm_logits(cfg, params, x)[:, 0], cache
+
+
+def _decode_hybrid(cfg: ModelConfig, params, cache, tokens, pos):
+    """The hybrid decode: layer ``blk * period + i`` reads and writes its
+    superblock's slot of the cache (the attention layers' K/V, the mamba
+    layers' state and conv carry, numbered within the superblock)."""
+    period = len(cfg.pattern)
+    with torch.no_grad():
+        x = params["embed"][tokens.to(torch.int64)][:, None]   # [B, 1, D]
+        for l, (blk, (kind, use_moe, _)) in enumerate(
+                zip(params["blocks"], layer_plan(cfg))):
+            sb, i = divmod(l, period)
+            slot = sum(1 for k in cfg.pattern[:i] if k == kind)
+            h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+            if kind == "attn":
+                mix, _, _ = attn_mod.decode_attention_dense(
+                    blk["mixer"], cfg, h, cache["k"][sb, slot],
+                    cache["v"][sb, slot], pos, -1)
+            else:
+                mix, (h2, c2) = mamba_mod.mamba_layer(
+                    blk["mixer"], cfg, h, state=(cache["ssm_h"][sb, slot],
+                                                 cache["conv"][sb, slot]))
+                cache["ssm_h"][sb, slot].copy_(h2)
+                cache["conv"][sb, slot].copy_(c2)
+            x = x + mix
+            h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
+            x = x + _ffn_or_moe(cfg, blk, h, use_moe)
         x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
         return _lm_logits(cfg, params, x)[:, 0], cache

@@ -10,7 +10,7 @@ engine's maintenance plane runs rate-limit, watermark and §5.3 policy
 compactions (approx-MSC scoring: B2; each compaction's Movement replayed
 on the page pools: B3/B5/B4), and after it one quantum drains when
 ``compaction_quantum > 0``.  One page pool serves all attention layers.
-Dense family only.
+Uniform-attention families only (dense and moe), as in the JAX package.
 
 The JAX package fuses a tick into one jitted dispatch; here it is eager
 PyTorch, and its host reads are counted in ``engine.HOST_READS``: the
@@ -33,7 +33,7 @@ from repro_torch.core.paged_kv import PagedKVConfig, PagedKVState
 from repro_torch.core.tiers import counters_dict
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import model as model_mod
-from repro_torch.models.common import ffn, norm
+from repro_torch.models.common import norm
 from repro_torch.obs import export as obs_export
 from repro_torch.obs import state as obs_plane
 
@@ -54,6 +54,7 @@ def paged_decode_step(mcfg: ModelConfig, cfg: PagedKVConfig, params,
         hd = mcfg.head_dim
         hkv = mcfg.n_kv_heads
         g = mcfg.n_heads // hkv
+        use_moe = mcfg.moe and mcfg.moe_every == 1
 
         # page selection shared across layers (summaries summed over L)
         q_proxy = x.reshape(1, b, 1, -1)[..., :hd].to(f32).expand(
@@ -82,7 +83,7 @@ def paged_decode_step(mcfg: ModelConfig, cfg: PagedKVConfig, params,
             o = (p @ vcat).reshape(b, mcfg.n_heads, 1, hd).to(x.dtype)
             x = x + attn_mod._out(o, blk["mixer"]["wo"])
             h = norm(blk["ln2"], x, mcfg.norm_kind, mcfg.norm_eps)
-            x = x + ffn(blk["ffn"], h, mcfg.ffn_kind, mcfg.act)
+            x = x + model_mod._ffn_or_moe(mcfg, blk, h, use_moe)
             k_stack.append(k_new[:, :, 0])
             v_stack.append(v_new[:, :, 0])
         kv = paged_kv.append_tokens(kv, cfg, seq_ids, torch.stack(k_stack),
@@ -155,13 +156,19 @@ class ServeEngine:
 
     Request orchestration (admission, prompt feeding, retirement) is host
     Python; the device work of a tick is ``_tick``.  ``device`` None means
-    the card (raises without one); ``params`` must lie on that device."""
+    the card (raises without one); ``params`` must lie on that device.
+    Serves the uniform-attention families (dense, moe), as the JAX
+    package's engine does; raises for the others."""
 
     def __init__(self, mcfg: ModelConfig, kv_cfg: PagedKVConfig, params,
                  seed: int = 0, pol_cfg: policy.PolicyConfig | None = None,
                  backend: str = "reference", compaction_quantum: int = 0,
                  device=None):
         model_mod.check_supported(mcfg)
+        if mcfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"ServeEngine serves uniform-attention families (dense, "
+                f"moe); {mcfg.name} is {mcfg.family}")
         self.device = resolve_device(device)
         self.mcfg = mcfg
         self.cfg = kv_cfg

@@ -1,6 +1,7 @@
 """Kernels B1 (clock_update), B2 (msc_score), B3-B5 (the tier_compact
 row movers select_gather_rows, scatter_rows, gather_rows), B6
-(paged_attention), B7 (flash_attention) and B8 (rwkv6_scan) of the port.
+(paged_attention), B7 (flash_attention), B8 (rwkv6_scan) and B9
+(mamba_scan) of the port.
 
 On the CPU: each wrapper takes its plain PyTorch version, held against
 the JAX package's kernel wrappers (``backend="reference"`` and the Pallas
@@ -10,7 +11,8 @@ versions are held to JAX in tests/test_torch_mirror.py; B6's and B7's
 plain versions within atol 2e-5 in float32 and 2e-2 in bfloat16 of the
 Pallas kernels in interpret mode (tests/test_kernels.py:28,51); B8's
 within atol 1e-4 of JAX's ``wkv`` on both its backends
-(tests/test_kernels.py:325).
+(tests/test_kernels.py:325); B9's within atol 1e-4 of JAX's
+``selective_scan`` on both its backends (tests/test_kernels.py:340).
 On a card (marker ``cuda``, skipped without one): each CUDA kernel held
 against its plain version on the same inputs.  The machine with the card
 has no JAX, so the JAX package is imported only inside the CPU tests; run
@@ -623,6 +625,125 @@ def test_rwkv6_forward_on_card():
     want, _ = model.forward(cfg, params, {"tokens": toks},
                             backend="reference")
     assert kernels.LAUNCHES["rwkv6_scan"] == n0 + cfg.n_layers
+    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    cache = model.init_cache(cfg, 2, 45, torch.float32)
+    lg, _ = model.decode_step(cfg, params, cache, toks[:, 0],
+                              torch.zeros(2, dtype=torch.int32,
+                                          device="cuda"))
+    assert float((lg - got[:, 0]).abs().max()) <= 1e-4
+
+
+# ------------------------------------------------------------- mamba scan
+
+MAMBA_SHAPES = [(2, 29, 32, 8), (1, 64, 64, 16)]    # tests/test_kernels.py:327
+
+
+def _mamba_inputs(rng, bb, tt, di, n):
+    """x normal, dt in (0, 0.1), A in (-1, 0), B, C and D normal, as
+    tests/test_kernels.py:331-336 draws them."""
+    return (rng.normal(size=(bb, tt, di)).astype(np.float32),
+            (rng.random((bb, tt, di)) * 0.1).astype(np.float32),
+            (-rng.random((di, n))).astype(np.float32),
+            rng.normal(size=(bb, tt, n)).astype(np.float32),
+            rng.normal(size=(bb, tt, n)).astype(np.float32),
+            rng.normal(size=(di,)).astype(np.float32))
+
+
+@pytest.mark.parametrize("jax_backend", ["reference", "pallas"])
+@pytest.mark.parametrize("bb,tt,di,n", MAMBA_SHAPES)
+def test_mamba_scan_plain_vs_jax(bb, tt, di, n, jax_backend):
+    """``mamba_ref``, and ``selective_scan`` on backend "cuda" with CPU
+    tensors (the plain version, no launch), against the JAX package's
+    ``selective_scan`` on "reference" and on "pallas" (interpret mode,
+    block_d 16, chunk 16, as tests/test_kernels.py:338): atol 1e-4."""
+    import jax.numpy as jnp
+    from repro.kernels.mamba_scan.ops import selective_scan as j_scan
+    from repro_torch.kernels.mamba_scan.ops import selective_scan
+    from repro_torch.kernels.mamba_scan.ref import mamba_ref
+    arrs = _mamba_inputs(np.random.default_rng(bb * 100 + tt), bb, tt, di,
+                         n)
+    kw = {"block_d": 16, "chunk": 16} if jax_backend == "pallas" else {}
+    want = np.asarray(j_scan(*map(jnp.asarray, arrs), backend=jax_backend,
+                             **kw))
+    before = kernels.LAUNCHES["mamba_scan"]
+    for got in (mamba_ref(*map(t, arrs)),
+                selective_scan(*map(t, arrs), backend="cuda")):
+        assert got.dtype == torch.float32 and got.shape == (bb, tt, di)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    assert kernels.LAUNCHES["mamba_scan"] == before       # plain on CPU
+
+
+def test_mamba_scan_wrapper_refuses_cpu_tensors():
+    """The mamba_scan launch wrapper validates before it builds or
+    launches: CPU tensors are refused, never taken by the plain
+    version."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    before = dict(kernels.LAUNCHES)
+    x = torch.zeros((1, 4, 8))
+    bc = torch.zeros((1, 4, 2))
+    with pytest.raises(ValueError):
+        mamba_scan(x, x, torch.zeros((8, 2)), bc, bc, torch.zeros(8))
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bb,tt,di,n", MAMBA_SHAPES + [
+    (2, 2048, 8192, 16),                     # jamba's prefill shape
+    (3, 1, 256, 16),                         # one step
+    (2, 37, 300, 16), (1, 45, 1000, 5)])     # T off the chunk, Di ragged
+def test_mamba_scan_kernel_on_card(bb, tt, di, n):
+    """B9 against its plain version on the card (atol 1e-4, the JAX
+    package's tolerance for this kernel), with B and C contiguous and as
+    ``mamba_layer`` passes them (column slices of one [Bb, T, r + 2N]
+    projection: strided, no copy); ``selective_scan`` casts bf16 inputs
+    to float32 and returns x's dtype."""
+    _needs_card()
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan, selective_scan
+    from repro_torch.kernels.mamba_scan.ref import mamba_ref
+    arrs = [t(a).cuda() for a in _mamba_inputs(
+        np.random.default_rng(bb * 100 + tt), bb, tt, di, n)]
+    want = mamba_ref(*arrs)
+    proj = torch.zeros((bb, tt, 3 + 2 * n), device="cuda")
+    proj[..., 3:3 + n], proj[..., 3 + n:] = arrs[3], arrs[4]
+    strided = arrs[:3] + [proj[..., 3:3 + n], proj[..., 3 + n:], arrs[5]]
+    n0 = kernels.LAUNCHES["mamba_scan"]
+    for args in (arrs, strided):
+        got = mamba_scan(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-4
+    assert kernels.LAUNCHES["mamba_scan"] == n0 + 2
+    bf = [x.to(torch.bfloat16) for x in arrs]
+    got = selective_scan(*bf, backend="cuda")
+    assert got.dtype == torch.bfloat16
+    want = mamba_ref(*bf)
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * max(
+        1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_hybrid_forward_on_card():
+    """Reduced jamba on the card: ``forward`` on backend "cuda" (B9 in the
+    7 mamba layers, B7 in the attention layer) against "reference" (the
+    plain scan and the masked softmax), atol 1e-4 on the logits with
+    equal argmax, and at capacity_factor 8 a decode step from an empty
+    cache equal to the forward's position 0."""
+    _needs_card()
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models import model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_arch("jamba-v0.1-52b")).replace(capacity_factor=8.0)
+    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(5))
+    gen = torch.Generator("cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab, (2, 45), generator=gen, device="cuda")
+    n0 = dict(kernels.LAUNCHES)
+    got, _ = model.forward(cfg, params, {"tokens": toks}, backend="cuda")
+    assert kernels.LAUNCHES["mamba_scan"] == n0["mamba_scan"] + 7
+    assert kernels.LAUNCHES["flash_attention"] == n0["flash_attention"] + 1
+    want, _ = model.forward(cfg, params, {"tokens": toks},
+                            backend="reference")
+    assert kernels.LAUNCHES["mamba_scan"] == n0["mamba_scan"] + 7
     assert float((got - want).abs().max()) <= 1e-4
     assert torch.equal(got.argmax(-1), want.argmax(-1))
     cache = model.init_cache(cfg, 2, 45, torch.float32)

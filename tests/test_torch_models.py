@@ -1,6 +1,7 @@
-"""The port's dense-family and ssm-family (rwkv6) models
-(``models/common.py``, ``attention.py``, ``rwkv6.py``, ``model.py``)
-against the JAX package on the CPU, at reduced sizes.
+"""The port's dense, ssm (rwkv6), hybrid (jamba) and moe (granite)
+models (``models/common.py``, ``attention.py``, ``rwkv6.py``,
+``mamba.py``, ``moe.py``, ``model.py``) against the JAX package on the
+CPU, at reduced sizes.
 
 The JAX package's parameters are carried across with
 ``model.params_from_numpy``, and every input is made from a seed with
@@ -10,8 +11,8 @@ the two frameworks' CPU matmuls and reductions sum in other orders
 (measured: at most 1.4e-6 on these shapes); the flash_attention plain
 version (backend "cuda" on CPU tensors) against the Pallas kernel in
 interpret mode at atol 2e-5 (tests/test_kernels.py:28).  Generated
-tokens (argmax) are held equal.  The rwkv6 tests state their own
-tolerances (``RWKV_TOL``).
+tokens (argmax) are held equal.  The rwkv6 and hybrid tests state their
+own tolerances (``RWKV_TOL``, ``HYB_TOL``).
 """
 import types
 
@@ -230,14 +231,18 @@ def test_decode_step(name):
         _close(a, b)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + ["jamba-v0.1-52b",
+                                          "granite-moe-3b-a800m"])
 def test_reference_fault_pallas_forward_raises(name):
     """A fault of the JAX package (ROADMAP Queue 3): its dense forward
     scans the layers with the window as a traced scan input, and
     ``attention`` calls ``mha(..., window=int(window))`` on that tracer,
     so ``forward(backend="pallas")`` raises for every reduced dense
-    config.  The port's layer loop keeps each window a Python int and
-    runs the kernel path (``test_forward_and_loss``)."""
+    config; the moe family takes the same scan, and the hybrid scan
+    passes the attention layer ``jnp.int32(-1)``, traced there too.  The
+    port's layer loop keeps each window a Python int and runs the kernel
+    path (``test_forward_and_loss``, ``test_hybrid_forward_and_loss``,
+    ``test_granite_forward_and_loss``)."""
     jcfg, _, jp, _ = _params(name)
     toks = jnp.zeros((1, 8), jnp.int32)
     with pytest.raises(jax.errors.ConcretizationTypeError):
@@ -246,8 +251,8 @@ def test_reference_fault_pallas_forward_raises(name):
 
 def test_unported_families_raise():
     jcfg = get_arch("phi4-mini-3.8b")
-    for cfg in (jcfg.replace(family="hybrid"), jcfg.replace(family="vlm"),
-                jcfg.replace(moe=True), jcfg.replace(family="audio")):
+    for cfg in (jcfg.replace(family="vlm"), jcfg.replace(m_rope=True),
+                jcfg.replace(family="audio")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model.init_params(reduced(cfg), torch.Generator(), device="cpu")
 
@@ -450,3 +455,375 @@ def test_rwkv_decode_step(rwkv):
         for k in ("wkv", "last_tm", "last_cm"):
             np.testing.assert_allclose(tc[k].numpy(), jc[k], atol=RWKV_TOL,
                                        rtol=1e-5, err_msg=f"{k} step {i}")
+
+
+# ------------------------------------------------------- hybrid and moe
+
+JAMBA, GRANITE = "jamba-v0.1-52b", "granite-moe-3b-a800m"
+# float32 throughout.  The random jamba's MoE experts are drawn with std
+# 1/sqrt(E) (the JAX init's fan-in quirk, kept), so its residual stream
+# and logits are larger than a dense model's (logits up to ~4); the two
+# frameworks' CPU matmuls sum in other orders: measured at most 9.4e-6
+# on its logits.  Hybrid outputs, logits, losses: atol 5e-5; caches
+# atol 5e-5 + rtol 1e-5.  The mamba_scan plain version against the
+# Pallas kernel keeps the JAX package's kernel tolerance, atol 1e-4
+# (tests/test_kernels.py:340).
+HYB_TOL = 5e-5
+
+
+def _moe_tree(name, seed, **kw):
+    """JAX ``init_moe`` parameters of the reduced config (numpy leaves),
+    and both packages' configs."""
+    from repro.models import moe as jmoe
+    jcfg, cfg = _cfgs(name)
+    jcfg, cfg = jcfg.replace(**kw), cfg.replace(**kw)
+    jp, _ = jmoe.init_moe(jcommon.ParamFactory(jax.random.PRNGKey(seed)),
+                          jcfg)
+    return jcfg, cfg, jax.tree.map(np.asarray, jp)
+
+
+def _jax_top_e(jcfg, router, x):
+    """The JAX package's routing of x (its own ops, recomputed)."""
+    e = router.shape[-1]
+    logits = (jnp.asarray(x).reshape(-1, x.shape[-1]) @ router) \
+        .astype(jnp.float32)
+    logits = jnp.where(jnp.arange(e) >= jcfg.n_experts, -1e30, logits)
+    _, top_e = jax.lax.top_k(jax.nn.softmax(logits, -1), jcfg.top_k)
+    return np.asarray(top_e).reshape(*x.shape[:-1], jcfg.top_k)
+
+
+# A MoE layer on its own, fed unit-normal inputs, gives outputs up to
+# ~26 (the experts' 1/sqrt(E) scale): atol 1e-5 and rtol 1e-5 there
+# (measured at most 3.2e-7 relative: float32 rounding of the matmuls).
+MOE_TOL = 1e-5
+
+
+def _moe_close(got, want, msg=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               atol=MOE_TOL, rtol=MOE_TOL, err_msg=msg)
+
+
+def _moe_both(jcfg, cfg, tree, x, dispatch="global"):
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe
+    jfn = {"global": jmoe.moe_ffn_global,
+           "rowwise": jmoe.moe_ffn_rowwise}[dispatch]
+    tfn = {"global": moe.moe_ffn_global,
+           "rowwise": moe.moe_ffn_rowwise}[dispatch]
+    want, wx = jax.jit(lambda p, a: jfn(p, jcfg, a))(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(x))
+    got, gx = tfn({k: t(v) for k, v in tree.items()}, cfg, t(x))
+    return want, wx, got, gx
+
+
+@pytest.mark.parametrize("name", [JAMBA, GRANITE])
+def test_moe_configs_match_the_jax_package(name):
+    jcfg, cfg = _cfgs(name)
+    for a, b in ((jcfg, cfg), (j_get_arch(name), get_arch(name))):
+        for f in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                  "d_ff", "vocab", "head_dim", "pattern", "layer_types",
+                  "layer_windows", "norm_kind", "norm_eps", "tie_embeddings",
+                  "moe", "n_experts", "n_experts_padded", "top_k",
+                  "moe_every", "capacity_factor", "moe_dispatch",
+                  "ssm_state", "ssm_conv", "ssm_expand", "ffn_kind", "act"):
+            assert getattr(a, f) == getattr(b, f), (name, f)
+
+
+def test_hybrid_init_params_shapes_and_scales():
+    """The port's own jamba init: per layer, the JAX superblock's shapes
+    (``blocks["pos{i}"]``), mamba's constants (``dt_proj_b`` -4.6,
+    ``a_log`` = log(1..N) on every channel, ``d`` one), the MoE layers
+    at the odd pattern positions, and the ParamFactory scales -- the
+    experts' 1/sqrt(E) of the JAX init's fan-in quirk included."""
+    jcfg, cfg = _cfgs(JAMBA)
+    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    p = model.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    assert set(p) == set(jp) and len(p["blocks"]) == cfg.n_layers == 8
+    for l, blk in enumerate(p["blocks"]):
+        jblk = jp["blocks"][f"pos{l}"]
+        assert set(blk) == set(jblk)
+        for grp in blk:
+            assert set(blk[grp]) == set(jblk[grp]), (l, grp)
+            for k, v in jblk[grp].items():
+                assert tuple(blk[grp][k].shape) == v.shape[1:], (l, grp, k)
+        assert ("router" in blk["ffn"]) == (l % 2 == 1)
+        assert ("wq" in blk["mixer"]) == (l == 4)
+    m, f = p["blocks"][0]["mixer"], p["blocks"][1]["ffn"]
+    di, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    assert torch.all(m["dt_proj_b"] == -4.6) and torch.all(m["d"] == 1)
+    assert torch.equal(m["a_log"], torch.log(torch.arange(
+        1, n + 1, dtype=torch.float32)).expand(di, n))
+    e = cfg.n_experts_padded
+    for w, scale in ((m["in_proj"], cfg.d_model ** -0.5),
+                     (m["conv_w"], 0.5), (m["x_proj"], di ** -0.5),
+                     (m["out_proj"], di ** -0.5), (f["router"], 0.02),
+                     (f["w_gate"], e ** -0.5), (f["w_up"], e ** -0.5),
+                     (f["w_down"], e ** -0.5)):
+        assert abs(float(w.std()) / scale - 1) < 0.1
+
+
+def test_mamba_layer_prefill_and_decode():
+    """Each mamba layer of reduced jamba: the sequence form on both
+    backends (backend "cuda": B9's plain version on CPU tensors) against
+    the JAX package's ``mamba_layer`` on "reference" and "pallas"
+    (interpret mode: the mamba_scan kernel), and the decode form with a
+    state and conv carry; conv_b, d, dt_proj_b and a_log seeded away
+    from their constant inits."""
+    from repro.models import mamba as jmamba
+    from repro_torch.models import mamba
+    jcfg, cfg = _cfgs(JAMBA)
+    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(2))
+    rng = np.random.default_rng(10)
+    di, n, k = cfg.ssm_expand * cfg.d_model, cfg.ssm_state, cfg.ssm_conv
+    x = rng.normal(size=(2, 21, cfg.d_model)).astype(np.float32)
+    x1 = x[:, :1]
+    h0 = rng.normal(size=(2, di, n)).astype(np.float32)
+    c0 = rng.normal(size=(2, k - 1, di)).astype(np.float32)
+    for pos in (0, 7):
+        jm = jax.tree.map(lambda a: np.asarray(a[0]),
+                          jp["blocks"][f"pos{pos}"]["mixer"])
+        for key, shift, scale in (("conv_b", 0.0, 0.3), ("d", 1.0, 0.5),
+                                  ("dt_proj_b", -4.0, 1.0),
+                                  ("a_log", 0.0, 0.5)):
+            jm[key] = (jm[key] + shift + scale * rng.normal(
+                size=jm[key].shape)).astype(np.float32)
+        tm = {kk: t(v) for kk, v in jm.items()}
+        jm = jax.tree.map(jnp.asarray, jm)
+        for jbe in ("reference", "pallas"):
+            want, (wh, wc) = jax.jit(lambda p, a: jmamba.mamba_layer(
+                p, jcfg, a, backend=jbe))(jm, jnp.asarray(x))
+            assert wh is None
+            for be in ("reference", "cuda"):
+                got, (gh, gc) = mamba.mamba_layer(tm, cfg, t(x), backend=be)
+                assert gh is None
+                _close(got, want, HYB_TOL, f"prefill {pos} {be} {jbe}")
+                _close(gc, wc, 0, f"conv carry {pos}")
+        want, (wh, wc) = jmamba.mamba_layer(
+            jm, jcfg, jnp.asarray(x1), state=(jnp.asarray(h0),
+                                              jnp.asarray(c0)))
+        got, (gh, gc) = mamba.mamba_layer(tm, cfg, t(x1),
+                                          state=(t(h0), t(c0)))
+        _close(got, want, HYB_TOL, f"decode {pos}")
+        np.testing.assert_allclose(gh.numpy(), np.asarray(wh), atol=HYB_TOL,
+                                   rtol=1e-5)
+        _close(gc, wc, 0, f"decode conv {pos}")
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+@pytest.mark.parametrize("dispatch", ["global", "rowwise"])
+def test_moe_ffn_matches_jax(dispatch, cf):
+    """``moe_ffn_global`` and ``moe_ffn_rowwise`` (reduced granite: 8
+    experts, top 2) against the JAX package's: outputs within
+    ``MOE_TOL``, ``aux_loss`` atol 1e-6, ``dropped`` equal, each token's
+    experts equal to the JAX routing's.  At capacity_factor 0.5 tokens
+    must drop (at 1.25 a few do too)."""
+    jcfg, cfg, tree = _moe_tree(GRANITE, 3, capacity_factor=cf)
+    x = np.random.default_rng(11).normal(size=(2, 16, cfg.d_model)) \
+        .astype(np.float32)
+    want, wx, got, gx = _moe_both(jcfg, cfg, tree, x, dispatch)
+    _moe_close(got, want, dispatch)
+    _close(gx["aux_loss"], wx["aux_loss"], 1e-6)
+    assert float(gx["dropped"]) == float(wx["dropped"])
+    assert float(gx["dropped"]) > 0 or cf > 1
+    assert np.array_equal(gx["experts"].numpy(),
+                          _jax_top_e(jcfg, tree["router"], x))
+
+
+def test_moe_padded_experts_never_chosen():
+    """Experts padded 5 -> 8 (as tests/test_models.py:117): the router's
+    mask keeps the pads out of every token's top 2, and the layer equals
+    the JAX package's."""
+    jcfg, cfg, tree = _moe_tree(GRANITE, 4, n_experts=5, n_experts_padded=8,
+                                top_k=2)
+    x = np.random.default_rng(12).normal(size=(1, 16, cfg.d_model)) \
+        .astype(np.float32)
+    want, wx, got, gx = _moe_both(jcfg, cfg, tree, x)
+    assert int(gx["experts"].max()) < 5
+    assert np.array_equal(gx["experts"].numpy(),
+                          _jax_top_e(jcfg, tree["router"], x))
+    _moe_close(got, want)
+    assert float(gx["dropped"]) == float(wx["dropped"])
+
+
+def test_moe_router_tie_lower_index_wins():
+    """A tie in the router: experts 1, 3 and 6 get bit-equal logits (small
+    integers times multiples of 1/8, exact in any summation order) above
+    the others, so the top 2 are experts 1 and 3 -- ``lax.top_k``'s rule,
+    the lower index first -- for every token, in both packages."""
+    jcfg, cfg, tree = _moe_tree(GRANITE, 5)
+    rng = np.random.default_rng(13)
+    x = rng.integers(0, 2, (1, 8, cfg.d_model)).astype(np.float32)
+    col = rng.integers(1, 4, cfg.d_model).astype(np.float32) / 8
+    router = np.tile((col / 2)[:, None], (1, 8))
+    router[:, [1, 3, 6]] = col[:, None]
+    tree["router"] = router.astype(np.float32)
+    want, wx, got, gx = _moe_both(jcfg, cfg, tree, x)
+    assert np.all(gx["experts"].numpy() == [1, 3])
+    assert np.array_equal(gx["experts"].numpy(),
+                          _jax_top_e(jcfg, tree["router"], x))
+    _moe_close(got, want)
+
+
+def test_moe_ffn_dispatch_modes():
+    """``moe_ffn`` takes the global or the rowwise dispatch as
+    ``moe_dispatch`` says, and raises for the expert-parallel one, which
+    needs a mesh the port does not have."""
+    from repro_torch.models import moe
+    _, cfg, tree = _moe_tree(GRANITE, 6)
+    p = {k: t(v) for k, v in tree.items()}
+    x = t(np.random.default_rng(14).normal(
+        size=(2, 8, cfg.d_model)).astype(np.float32))
+    for mode, fn in (("global", moe.moe_ffn_global),
+                     ("rowwise", moe.moe_ffn_rowwise)):
+        got, _ = moe.moe_ffn(p, cfg.replace(moe_dispatch=mode), x)
+        assert torch.equal(got, fn(p, cfg, x)[0]), mode
+    with pytest.raises(NotImplementedError, match="ep_local"):
+        moe.moe_ffn(p, cfg.replace(moe_dispatch="ep_local"), x)
+
+
+@pytest.fixture(scope="module")
+def hybrid():
+    """Reduced jamba parameters carried across (mamba's conv_b, d,
+    dt_proj_b and a_log seeded away from their constant inits), and the
+    JAX side of the hybrid tests run once, jitted: forward and loss on
+    "reference" (its "pallas" forward raises:
+    ``test_reference_fault_pallas_forward_raises``), and a 12-token
+    teacher-forced decode at capacity_factor 8.0, where no token can
+    drop (E / k = 4 <= 8), so decode and forward route alike."""
+    jcfg, cfg = _cfgs(JAMBA)
+    jp, _ = JM.init_params(jcfg, jax.random.PRNGKey(14))
+    tree = jax.tree.map(np.asarray, jp)
+    rng = np.random.default_rng(22)
+    for i, kind in enumerate(jcfg.pattern):
+        if kind != "mamba":
+            continue
+        mx = tree["blocks"][f"pos{i}"]["mixer"]
+        for key, shift, scale in (("conv_b", 0.0, 0.3), ("d", 1.0, 0.5),
+                                  ("dt_proj_b", -4.0, 1.0),
+                                  ("a_log", 0.0, 0.5)):
+            mx[key] = (mx[key] + shift + scale * rng.normal(
+                size=mx[key].shape)).astype(np.float32)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tp = model.params_from_numpy(cfg, tree, device="cpu")
+    toks = rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    fwd, aux = jax.jit(lambda p, b: JM.forward(jcfg, p, b))(jp, jb)
+    loss = float(jax.jit(lambda p, b: JM.loss_fn(jcfg, p, b))(jp, jb))
+    c8 = jcfg.replace(capacity_factor=8.0)
+    step = jax.jit(lambda p, c, tk, pos: JM.decode_step(c8, p, c, tk, pos))
+    jc, _ = JM.init_cache(c8, 2, 16, jnp.float32)
+    dec = []
+    for i in range(12):
+        lg, jc = step(jp, jc, jnp.asarray(toks[:, i]),
+                      jnp.full((2,), i, jnp.int32))
+        dec.append((np.asarray(lg), jax.tree.map(np.asarray, jc)))
+    fwd8 = np.asarray(jax.jit(lambda p, b: JM.forward(c8, p, b)[0])(
+        jp, {"tokens": jnp.asarray(toks[:, :12])}))
+    return types.SimpleNamespace(jcfg=jcfg, cfg=cfg, tp=tp, toks=toks,
+                                 labels=labels, fwd=np.asarray(fwd),
+                                 aux=float(aux), loss=loss, dec=dec,
+                                 fwd8=fwd8)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_hybrid_forward_and_loss(hybrid, backend):
+    """Reduced jamba's ``forward`` (7 mamba layers, 1 attention layer, 4
+    MoE layers; backend "cuda": B9's and B7's plain versions on CPU
+    tensors) and ``loss_fn`` against the JAX package's on "reference":
+    logits, the summed aux loss and the loss, equal argmax."""
+    tb = {"tokens": t(hybrid.toks), "labels": t(hybrid.labels)}
+    n0 = dict(kernels.LAUNCHES)
+    got, aux = model.forward(hybrid.cfg, hybrid.tp, tb, backend=backend)
+    loss = model.loss_fn(hybrid.cfg, hybrid.tp, tb, backend=backend)
+    assert got.shape == (2, 24, hybrid.cfg.vocab)
+    _close(got, hybrid.fwd, HYB_TOL)
+    assert np.array_equal(got.argmax(-1).numpy(), hybrid.fwd.argmax(-1))
+    _close(aux, hybrid.aux, HYB_TOL)
+    _close(loss, hybrid.loss, HYB_TOL)
+    assert kernels.LAUNCHES == n0                       # plain on CPU
+
+
+def test_hybrid_decode_step(hybrid):
+    """``init_cache`` in the JAX hybrid layout and a 12-token
+    teacher-forced ``decode_step`` at capacity_factor 8.0 (float32
+    caches) against the JAX package's: logits and every cache leaf (K/V
+    per superblock, the mamba state and conv carry) at each step, equal
+    argmax; the logits also against the forward's at the same position
+    (the recurrent step against the scan)."""
+    cfg = hybrid.cfg.replace(capacity_factor=8.0)
+    tc = model.init_cache(cfg, 2, 16, torch.float32, device="cpu")
+    jc0, _ = JM.init_cache(hybrid.jcfg, 2, 16, jnp.float32)
+    assert {k: tuple(v.shape) for k, v in tc.items()} == {
+        k: v.shape for k, v in jc0.items()}
+    assert tc["ssm_h"].dtype == torch.float32
+    assert model.init_cache(cfg, 2, 16, device="cpu")["conv"].dtype == \
+        torch.bfloat16
+    for i, (jl, jc) in enumerate(hybrid.dec):
+        tl, tc2 = model.decode_step(cfg, hybrid.tp, tc,
+                                    t(hybrid.toks[:, i]),
+                                    torch.full((2,), i, dtype=torch.int32))
+        assert tc2 is tc                                   # in place
+        _close(tl, jl, HYB_TOL, f"step {i}")
+        assert np.array_equal(tl.argmax(-1).numpy(), jl.argmax(-1))
+        _close(tl, hybrid.fwd8[:, i], HYB_TOL, f"forward {i}")
+        for k in jc:
+            np.testing.assert_allclose(tc[k].numpy(), jc[k], atol=HYB_TOL,
+                                       rtol=1e-5, err_msg=f"{k} step {i}")
+
+
+@pytest.fixture(scope="module")
+def granite():
+    """Reduced granite (2 layers of attention + MoE, 8 experts top 2) and
+    the JAX side run once, jitted: forward and loss on "reference", and a
+    12-step greedy decode at the published capacity_factor 1.25 (two
+    tokens a step: capacity 1 an expert, so tokens drop in both
+    packages alike)."""
+    jcfg, cfg, jp, tp = _params(GRANITE, seed=15)
+    rng = np.random.default_rng(23)
+    toks = rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    fwd, aux = jax.jit(lambda p, b: JM.forward(jcfg, p, b))(jp, jb)
+    loss = float(jax.jit(lambda p, b: JM.loss_fn(jcfg, p, b))(jp, jb))
+    step = jax.jit(lambda p, c, tk, pos: JM.decode_step(jcfg, p, c, tk, pos))
+    jc, _ = JM.init_cache(jcfg, 2, 16, jnp.float32)
+    tok = np.array([3, 7], np.int32)
+    dec = []
+    for i in range(12):
+        lg, jc = step(jp, jc, jnp.asarray(tok), jnp.full((2,), i, jnp.int32))
+        dec.append((tok, np.asarray(lg), jax.tree.map(np.asarray, jc)))
+        tok = np.asarray(jnp.argmax(lg, -1)).astype(np.int32)
+    return types.SimpleNamespace(jcfg=jcfg, cfg=cfg, tp=tp, toks=toks,
+                                 labels=labels, fwd=np.asarray(fwd),
+                                 aux=float(aux), loss=loss, dec=dec)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_granite_forward_and_loss(granite, backend):
+    """Reduced granite's ``forward`` and ``loss_fn`` against the JAX
+    package's on "reference": logits atol 1e-5, the aux loss, the loss,
+    equal argmax."""
+    tb = {"tokens": t(granite.toks), "labels": t(granite.labels)}
+    got, aux = model.forward(granite.cfg, granite.tp, tb, backend=backend)
+    _close(got, granite.fwd)
+    assert np.array_equal(got.argmax(-1).numpy(), granite.fwd.argmax(-1))
+    _close(aux, granite.aux)
+    _close(model.loss_fn(granite.cfg, granite.tp, tb, backend=backend),
+           granite.loss)
+
+
+def test_granite_decode_step(granite):
+    """Reduced granite's greedy ``decode_step`` against the JAX package's:
+    the same tokens, logits and K/V caches atol 1e-5 at each step."""
+    tc = model.init_cache(granite.cfg, 2, 16, torch.float32, device="cpu")
+    for i, (tok, jl, jc) in enumerate(granite.dec):
+        tl, tc = model.decode_step(granite.cfg, granite.tp, tc, t(tok),
+                                   torch.full((2,), i, dtype=torch.int32))
+        _close(tl, jl, msg=f"step {i}")
+        assert np.array_equal(tl.argmax(-1).numpy(), jl.argmax(-1))
+        for k in ("k", "v"):
+            _close(tc[k], jc[k], msg=f"{k} step {i}")

@@ -323,6 +323,60 @@ def test_serve_engine_matches_jax(case, backend):
         assert jctr["compactions"] > 0 and jctr["demoted"] > 0
 
 
+GRANITE = "granite-moe-3b-a800m"
+
+
+@functools.lru_cache(maxsize=None)
+def _granite_run():
+    """The JAX engine serving reduced granite (attention + MoE in both
+    layers, 8 experts top 2) through the memory_pressure case."""
+    fp, ms, topk, n, plen, mnew, q = SERVE_CASES["memory_pressure"]
+    jcfg = j_reduced(j_get_arch(GRANITE))
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(5))[0]
+    eng = jserve.ServeEngine(jcfg, _serve_kv(jpk.PagedKVConfig, fp, ms,
+                                             topk), jp)
+    reqs = [jserve.Request(rid=i, prompt=p, max_new=mnew)
+            for i, p in enumerate(_prompts(n, plen))]
+    for r in reqs:
+        eng.submit(r)
+    ticks = eng.run(max_ticks=400)
+    return (jax.tree.map(np.asarray, jp), [r.out for r in reqs],
+            jax.device_get(eng.est), eng.counters, ticks)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_serve_engine_moe_matches_jax(backend):
+    """``ServeEngine`` over reduced granite (``paged_decode_step``'s MoE
+    branch: the decode batch of 4 sequences routes through
+    ``moe_ffn``, capacity 2 an expert, so tokens drop in both packages
+    alike) against the JAX package's: the same tokens, ticks, counters
+    and engine leaves (``_assert_engine_states``)."""
+    fp, ms, topk, n, plen, mnew, q = SERVE_CASES["memory_pressure"]
+    tree, jtokens, jstate, jctr, jticks = _granite_run()
+    cfg = reduced(get_arch(GRANITE))
+    eng = ServeEngine(cfg, _serve_kv(paged_kv.PagedKVConfig, fp, ms, topk),
+                      model.params_from_numpy(cfg, tree, device="cpu"),
+                      backend=backend, device="cpu")
+    reqs = [Request(rid=i, prompt=p, max_new=mnew)
+            for i, p in enumerate(_prompts(n, plen))]
+    for r in reqs:
+        eng.submit(r)
+    assert eng.run(max_ticks=400) == jticks
+    assert [r.out for r in reqs] == jtokens
+    assert eng.counters == jctr
+    _assert_engine_states(jstate, engine.state_to_numpy(eng.est))
+
+
+def test_serve_engine_refuses_hybrid():
+    """The engine serves uniform-attention families only, as the JAX
+    package's does: a hybrid (jamba) model raises."""
+    cfg = reduced(get_arch("jamba-v0.1-52b"))
+    params = model.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="uniform-attention"):
+        ServeEngine(cfg, paged_kv.PagedKVConfig(**_kv_kw()), params,
+                    device="cpu")
+
+
 def test_serve_host_reads_per_tick():
     """A tick's host reads: the maintenance loop's (one at entry, one per
     compaction) and the JAX tick's three (sequence lengths before and
