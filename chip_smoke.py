@@ -5,10 +5,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each printed as one JSON line:
   1. device   -- nvidia-smi name/power limit, build of every CUDA kernel
-                 (one nvcc per source, all started together)
+                 (one nvcc per source, all started together); then the
+                 sass line: each flash_attention instance's tensor-core
+                 instructions (cuobjdump -sass) and registers and spills
+                 (ptxas), every bf16 instance on HMMA/HGMMA, no D 128/256
+                 instance spilling
   2. kernels  -- each kernel against its plain PyTorch version on the card
                  at the main paths' shapes (clock_update and the three
-                 tier_compact movers bit-exact, msc_score rtol 1e-5 with
+                 tier_compact movers bit-exact, clock_update's wrapper
+                 making no CUDA activity but its kernel's launches,
+                 msc_score rtol 1e-5 with
                  equal argmax; flash_attention at phi4-mini's prefill and
                  gemma3-1b's shapes, atol 2e-5 f32 / 2e-2 bf16;
                  rwkv6_scan at rwkv6-7b's prefill shape and a ragged
@@ -99,6 +105,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 FULL_SCALE = 1536              # paper §7: 100.7 M keys
 BATCH = 4096                   # client batch (ops per engine step)
+CLOCK_LAUNCHES = 3             # B1's claim, mark and apply launches
 # The 50%-preload recipe runs at 1536 / 128: the largest halving of the
 # full scale whose run directory does not overflow (ROADMAP Queue 3) and
 # whose preload fits the time limit.
@@ -224,11 +231,36 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 # ------------------------------------------------------------ phase 2
 
+def _device_kernels(fn, calls: int) -> tuple:
+    """CUDA activities (kernels, copies, fills) per call of ``fn`` over
+    ``calls`` calls under the profiler, and their names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):   # the first profile warms CUPTI up; the second counts
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name != "Command Buffer Full"]
+    return len(dev) / calls, sorted({e.name[:60] for e in dev})
+
+
 def check_clock_update(cfg, batch: int, rng) -> dict:
+    """B1 against ``tracker.access_batched`` (and the kernel's passes in
+    plain PyTorch, ``clock_update_passes``) on 8 batches of hot,
+    colliding and random keys, bit-exact; the wrapper's time, the
+    launches' alone and the CUDA activities a wrapper call makes (the
+    kernel's own three launches, nothing else)."""
     import numpy as np
     import torch
     from repro_torch.core import tracker
     from repro_torch.kernels.clock_update import ops
+    from repro_torch.kernels.clock_update.ref import clock_update_passes
     dev = torch.device("cuda")
     t = cfg.tracker_slots
     # keys that collide on a slot: draw many, keep groups sharing a slot
@@ -257,41 +289,50 @@ def check_clock_update(cfg, batch: int, rng) -> dict:
                                 .astype(np.int8)).to(dev)
         valid = torch.from_numpy(rng.random(batch) > 0.05).to(dev)
         want = tracker.access_batched(state, keys, locs, valid)
+        passes = clock_update_passes(state, keys, locs, valid)
         got = ops.clock_update(
             tracker.TrackerState(*[x.clone() for x in state]), keys, locs,
             valid)
         torch.cuda.synchronize()
-        for a, b in zip(want, got):
+        for a, b, c in zip(want, got, passes):
             worst = max(worst, int((a.to(torch.int64) - b.to(torch.int64))
-                                   .abs().max()))
+                                   .abs().max()),
+                        int((a.to(torch.int64) - c.to(torch.int64))
+                            .abs().max()))
         state = want
     if worst != 0:
         raise AssertionError(f"clock_update differs from access_batched "
                              f"(max abs err {worst})")
     touched = int(torch.unique(tracker.slot_of(t, keys[valid])).numel())
     scratch = tracker.TrackerState(*[x.clone() for x in state])
-    ms = cuda_ms(lambda: ops.clock_update(scratch, keys, locs, valid), 50)
-    # the two launches alone, the occurrence count computed once outside
-    occ = ops.occurrences(keys, valid)
-    last = [torch.full((t,), -1, dtype=torch.int32, device=dev)
-            for _ in range(2)]
+    call = lambda: ops.clock_update(scratch, keys, locs, valid)
+    ms = cuda_ms(call, 200)
+    per_call, names = _device_kernels(call, 16)
+    if per_call != CLOCK_LAUNCHES:
+        raise AssertionError(f"clock_update: a wrapper call makes "
+                             f"{per_call} CUDA activities ({names}), its "
+                             f"kernel {CLOCK_LAUNCHES} launches")
+    # the launches alone (held scratch, no validation)
     lib = ops._lib()
     stream = torch.cuda.current_stream().cuda_stream
+    sc = ops._scratch(dev, t, batch)
     launch_ms = cuda_ms(lambda: lib.clock_update_launch(
-        keys.data_ptr(), occ.data_ptr(), locs.data_ptr(), valid.data_ptr(),
-        batch, scratch.keys.data_ptr(), scratch.clock.data_ptr(),
-        scratch.loc.data_ptr(), t, last[0].data_ptr(), last[1].data_ptr(),
-        stream), 200)
+        keys.data_ptr(), locs.data_ptr(), valid.data_ptr(), batch,
+        scratch.keys.data_ptr(), scratch.clock.data_ptr(),
+        scratch.loc.data_ptr(), t, sc[0].data_ptr(), sc[1].data_ptr(),
+        sc[2].data_ptr(), stream), 200)
     plain_ms = cuda_ms(lambda: tracker.access_batched(state, keys, locs,
                                                       valid), 20)
-    nbytes = batch * (4 + 4 + 1 + 1) + touched * (6 + 6)
+    nbytes = batch * (4 + 1 + 1) + touched * (6 + 6)
     return {"name": "clock_update", "route": "cuda",
             "source": "src/repro_torch/csrc/clock_update.cu",
             "replaces": "src/repro/kernels/clock_update/clock_update.py:85",
             "max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
             "library_ms": None, "shape": {"T": t, "B": batch},
-            "touched_slots": touched, "launch_only_ms": launch_ms}
+            "touched_slots": touched, "launch_only_ms": launch_ms,
+            "cuda_kernels_per_call": per_call,
+            "kernel_launches": CLOCK_LAUNCHES, "cuda_kernel_names": names}
 
 
 def check_msc_score(cfg, rng) -> dict:
@@ -1109,14 +1150,53 @@ def _visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return int(np.clip(hi - lo, 0, None).sum())
 
 
-def check_flash_attention(rng) -> dict:
+def _kernel_instances(report: dict, name: str) -> dict:
+    """Per kernel instance of library ``name``: its tensor-core
+    instructions in the built SASS (``cuobjdump -sass``: HMMA, HGMMA) and
+    its registers and spill bytes from the ptxas report of this run's
+    build."""
+    import re
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.lib_path(name))], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split("\n", 1)[0].strip()
+        out[fn] = {"HMMA": len(re.findall(r"\bHMMA\.", part)),
+                   "HGMMA": len(re.findall(r"\bHGMMA\.", part))}
+    log = report.get(name, {}).get("ptxas", "")
+    for m in re.finditer(
+            r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads\n"
+            r"ptxas info\s*: Used (\d+) registers", log):
+        out.setdefault(m.group(1), {}).update(
+            registers=int(m.group(5)),
+            spill_bytes=int(m.group(3)) + int(m.group(4)))
+    return out
+
+
+def _flash_instance(d: int, dtype) -> str:
+    """The mangled-name fragment of B7's instance for head dim d."""
+    import torch
+    tmpl = 64 if d <= 64 else (128 if d <= 128 else 256)
+    kind = "flash_bf16" if dtype == torch.bfloat16 else "flash_f32"
+    return f"{kind}ILi{tmpl}E"
+
+
+def check_flash_attention(rng, instances: dict) -> dict:
     """B7 against its plain version (``attention_ref``) on the card at
     phi4-mini's prefill shape (f32 and bf16, causal) and gemma3-1b's
     (head dim 256, window 512 and global), atol 2e-5 in f32 and 2e-2 in
     bf16 (tests/test_kernels.py:28); the library call is
     ``scaled_dot_product_attention`` with the same mask and GQA.  Bound:
     the larger of q, k, v and o moved once at HBM_BYTES_PER_S and
-    4 * B * Hq * D FLOPs per visible pair at the dtype's peak."""
+    4 * B * Hq * D FLOPs per visible pair at the dtype's peak.  Each
+    shape's row names its kernel instance's tensor-core instructions and
+    registers (``instances``, from ``_kernel_instances``); every bf16
+    instance must hold HMMA or HGMMA, and no D = 128 or 256 instance may
+    spill."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -1155,6 +1235,8 @@ def check_flash_attention(rng) -> dict:
                                                      window=window), 2, 1)
             lib_ms = cuda_ms(lib, 5, 1)
             pairs = _visible_pairs(s, s, True, window)
+            inst = {k: v for k, v in instances.items()
+                    if _flash_instance(d, dtype) in k}
             flops = 4 * b * hq * d * pairs
             nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
             peak = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
@@ -1165,7 +1247,7 @@ def check_flash_attention(rng) -> dict:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "bound_ms": max(b_bytes, b_ops),
                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                "tflops": flops / ms / 1e9})
+                "tflops": flops / ms / 1e9, "instance": inst})
             del q, k, v, mask
             torch.cuda.empty_cache()
     main = shapes[0]     # phi4 prefill, float32: the prefill phase's shape
@@ -1458,7 +1540,7 @@ def prefill_phase(params, cfg, seed: int = PREFILL_SEED,
 # PyTorch operators it is made of (sorts, searchsorted, index, index_put,
 # scatter, gather; the embedding lookup's index is among them too).
 KERNEL_GROUPS = {"gemm": ("gemm", "Gemm"), "mamba_scan": ("mamba_scan",),
-                 "flash_attention": ("flash_attention",)}
+                 "flash_attention": ("flash_f32", "flash_bf16")}
 DISPATCH_OPS = ("aten::sort", "aten::searchsorted", "aten::index",
                 "aten::index_put_", "aten::_index_put_impl_",
                 "aten::scatter_", "aten::gather")
@@ -2084,6 +2166,16 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.time() - t0, "built": sorted(report)})
+    flash_sass = _kernel_instances(report, "flash_attention")
+    emit({"phase": "sass", "flash_attention": flash_sass})
+    bad = [k for k, v in flash_sass.items() if "flash_bf16" in k
+           and v["HMMA"] + v["HGMMA"] == 0] + [
+        k for k, v in flash_sass.items() if ("Li128E" in k or "Li256E" in k)
+        and v.get("spill_bytes", 0) > 0]
+    if bad:
+        raise AssertionError(f"flash_attention: a bf16 instance without "
+                             f"tensor-core instructions, or a D 128/256 "
+                             f"instance that spills: {bad}")
 
     from repro_torch.core.embedding_store import EmbedStoreConfig
     rng = np.random.default_rng(0)
@@ -2092,7 +2184,7 @@ def main() -> int:
                                  fast_rows=EMBED_FAST_ROWS)
     rows = [check_clock_update(full, BATCH, rng), check_msc_score(full, rng)]
     rows += check_tier_compact(full, embed_cfg, rng)
-    rows.append(check_flash_attention(rng))
+    rows.append(check_flash_attention(rng, flash_sass))
     rows.append(check_rwkv6_scan(rng))
     rows.append(check_mamba_scan(rng))
     emit({"phase": "kernels", "rows": rows})

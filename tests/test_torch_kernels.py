@@ -30,8 +30,6 @@ from repro_torch.kernels.clock_update.ops import tracker_access
 from repro_torch.kernels.msc_score.ops import score_candidates
 from torch_parity import assert_bit_equal, t
 
-RNG = np.random.default_rng(0)
-
 
 def _needs_card():
     if not torch.cuda.is_available():
@@ -49,12 +47,14 @@ def test_clock_update_plain_vs_jax(cap, batch, tile, jax_backend):
     import jax.numpy as jnp
     from repro.core import tracker as jtracker
     from repro.kernels.clock_update.ops import tracker_access as j_access
+    rng = np.random.default_rng([cap, batch, tile or 0,
+                                 jax_backend == "pallas"])
     before = kernels.LAUNCHES["clock_update"]
     js, ts = jtracker.init(cap), tracker.init(cap, "cpu")
     for _ in range(4):
-        keys = RNG.integers(0, 4 * cap, batch).astype(np.int32)
-        locs = RNG.integers(0, 2, batch).astype(np.int8)
-        valid = RNG.random(batch) > 0.1
+        keys = rng.integers(0, 4 * cap, batch).astype(np.int32)
+        locs = rng.integers(0, 2, batch).astype(np.int8)
+        valid = rng.random(batch) > 0.1
         kw = {"tile": tile} if jax_backend == "pallas" else {}
         js = j_access(js, *map(jnp.asarray, (keys, locs, valid)),
                       backend=jax_backend, **kw)
@@ -64,20 +64,56 @@ def test_clock_update_plain_vs_jax(cap, batch, tile, jax_backend):
     assert kernels.LAUNCHES["clock_update"] == before   # plain on CPU
 
 
-def _msc_inputs(nb=64, k=8, width=8192):
+@pytest.mark.parametrize("jax_backend", ["reference", "pallas"])
+@pytest.mark.parametrize("span", [2, 4])
+@pytest.mark.parametrize("cap,batch", [(331, 700), (331, 4096), (1021, 700),
+                                       (1021, 4096)])
+def test_clock_update_passes_vs_jax(cap, batch, span, jax_backend):
+    """The kernel's claim/mark/apply passes in plain PyTorch
+    (``clock_update_passes``) bit-exact to the JAX package's
+    ``tracker_access`` (both its backends; the Pallas kernel in
+    interpret mode) and to ``tracker.access_batched``, on batches
+    whose keys come from a range of ``span`` x the batch over a small
+    table: most slots take several accesses and many winners repeat, so
+    "a duplicate of the winner in its slot" is held to "the key occurs
+    >= 2 times" where no card is."""
+    import jax.numpy as jnp
+    from repro.core import tracker as jtracker
+    from repro.kernels.clock_update.ops import tracker_access as j_access
+    from repro_torch.kernels.clock_update.ref import clock_update_passes
+    rng = np.random.default_rng([cap, batch, span, jax_backend == "pallas"])
+    js, ts = jtracker.init(cap), tracker.init(cap, "cpu")
+    dups = 0
+    for _ in range(4):
+        keys = rng.integers(0, span * batch, batch).astype(np.int32)
+        locs = rng.integers(0, 2, batch).astype(np.int8)
+        valid = rng.random(batch) > 0.1
+        js = j_access(js, *map(jnp.asarray, (keys, locs, valid)),
+                      backend=jax_backend)
+        plain = tracker.access_batched(ts, t(keys), t(locs), t(valid))
+        ts = clock_update_passes(ts, t(keys), t(locs), t(valid))
+        for a, b, c in zip(js, ts, plain):
+            assert_bit_equal(np.asarray(a), b.numpy())
+            assert torch.equal(b, c)
+        dups += int((np.unique(keys[valid], return_counts=True)[1] > 1)
+                    .sum())
+    assert dups > batch // 8       # the batches repeat keys
+
+
+def _msc_inputs(rng, nb=64, k=8, width=8192):
     """Candidates and bucket statistics as the engine keeps them: the
     tracked fast keys of a bucket (the clock histogram row) are a subset
     of its fast keys.  (Rows whose histogram exceeds the bucket's count
     push the pinned fraction p towards its 0.999 clip, where 1 / (1 - p)
     magnifies any change in the order of the sums: see
     ``test_msc_score_kernel_near_pin_clip_on_card``.)"""
-    lo = RNG.integers(0, width // 2, k).astype(np.int32)
-    hi = (lo + RNG.integers(1, width // 4, k)).astype(np.int32)
-    hist = RNG.integers(0, 30, (nb, 4)).astype(np.int32)
-    return [lo, hi, RNG.integers(0, 500, k).astype(np.int32),
-            (hist.sum(1) + RNG.integers(0, 100, nb)).astype(np.int32),
-            RNG.integers(0, 400, nb).astype(np.int32),
-            RNG.integers(0, 50, nb).astype(np.int32), hist,
+    lo = rng.integers(0, width // 2, k).astype(np.int32)
+    hi = (lo + rng.integers(1, width // 4, k)).astype(np.int32)
+    hist = rng.integers(0, 30, (nb, 4)).astype(np.int32)
+    return [lo, hi, rng.integers(0, 500, k).astype(np.int32),
+            (hist.sum(1) + rng.integers(0, 100, nb)).astype(np.int32),
+            rng.integers(0, 400, nb).astype(np.int32),
+            rng.integers(0, 50, nb).astype(np.int32), hist,
             np.asarray([0.1, 0.4, 0.9, 1.0], np.float32)], width // nb
 
 
@@ -86,8 +122,9 @@ def _msc_inputs(nb=64, k=8, width=8192):
 def test_msc_score_plain_vs_jax(nb, k, jax_backend):
     import jax.numpy as jnp
     from repro.kernels.msc_score.ops import score_candidates as j_score
+    rng = np.random.default_rng([nb, k, jax_backend == "pallas"])
     for _ in range(8):
-        args, bw = _msc_inputs(nb, k, width=nb * 37)
+        args, bw = _msc_inputs(rng, nb, k, width=nb * 37)
         want = np.asarray(j_score(*map(jnp.asarray, args), bucket_width=bw,
                                   backend=jax_backend))
         got = score_candidates(*map(t, args), bucket_width=bw,
@@ -100,19 +137,22 @@ def test_msc_score_plain_vs_jax(nb, k, jax_backend):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cap,batch", [(1 << 20, 4096), (1021, 256),
-                                       (331, 700)])
+                                       (331, 700), (1021, 4096)])
 def test_clock_update_kernel_on_card(cap, batch):
+    """B1 bit-exact to ``access_batched`` on the card; (1021, 4096) puts
+    many duplicates behind most slot winners."""
     _needs_card()
     from repro_torch.kernels.clock_update.ops import clock_update
     dev = torch.device("cuda")
+    rng = np.random.default_rng([cap, batch])
     state = tracker.init(cap, dev)
     n0 = kernels.LAUNCHES["clock_update"]
     for i in range(6):
-        keys = torch.from_numpy(RNG.integers(0, 2 * cap, batch)
+        keys = torch.from_numpy(rng.integers(0, 2 * cap, batch)
                                 .astype(np.int32)).to(dev)
-        locs = torch.from_numpy(RNG.integers(0, 2, batch)
+        locs = torch.from_numpy(rng.integers(0, 2, batch)
                                 .astype(np.int8)).to(dev)
-        valid = torch.from_numpy(RNG.random(batch) > 0.1).to(dev)
+        valid = torch.from_numpy(rng.random(batch) > 0.1).to(dev)
         want = tracker.access_batched(state, keys, locs, valid)
         got = clock_update(tracker.TrackerState(*[x.clone() for x in state]),
                            keys, locs, valid)
@@ -130,8 +170,9 @@ def test_msc_score_kernel_on_card(nb, k):
     from repro_torch.kernels.msc_score.ops import msc_scores
     from repro_torch.kernels.msc_score.ref import msc_scores_ref
     torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng([nb, k])
     for _ in range(16):
-        args, bw = _msc_inputs(nb, k, width=nb * 391)
+        args, bw = _msc_inputs(rng, nb, k, width=nb * 391)
         cargs = [t(a).cuda() for a in args]
         want = msc_scores_ref(*cargs, bucket_width=bw)
         got = msc_scores(*cargs, bucket_width=bw)
@@ -208,7 +249,7 @@ def test_wrappers_refuse_cpu_tensors():
                      torch.zeros(4, dtype=torch.int32),
                      torch.zeros(4, dtype=torch.int8),
                      torch.ones(4, dtype=torch.bool))
-    args, bw = _msc_inputs(16, 4)
+    args, bw = _msc_inputs(np.random.default_rng(16), 16, 4)
     with pytest.raises(ValueError):
         msc_scores(*map(t, args), bucket_width=bw)
     assert kernels.LAUNCHES == before
@@ -456,6 +497,12 @@ def test_attention_wrappers_refuse_cpu_tensors():
     (1, 4, 1, 130, 130, 256, True, -1),
     (2, 6, 2, 70, 70, 80, True, 33),         # head dim below its template
     (1, 3, 1, 9, 40, 128, True, 4),          # right-aligned short queries
+    (1, 6, 2, 37, 37, 128, True, -1),        # 111 rows: not a multiple of 16
+    (2, 4, 4, 50, 100, 64, True, 16),        # Sk off the 64-key tile
+    (1, 5, 1, 23, 150, 80, False, -1),       # 115 rows, Sk 150, no mask
+    (1, 2, 1, 70, 70, 256, True, -1),        # head dim 256, 140 rows
+    (2, 8, 2, 200, 200, 256, True, 48),      # head dim 256, window, ragged
+    (1, 2, 1, 33, 33, 20, True, -1),         # rows not 16-byte aligned
 ])
 def test_flash_attention_kernel_on_card(b, hq, hkv, sq, sk, d, causal, win,
                                         dtype):
@@ -481,6 +528,88 @@ def test_flash_attention_kernel_on_card(b, hq, hkv, sq, sk, d, causal, win,
         assert got.dtype == dt and got.shape == q.shape
         assert float((got.float() - want.float()).abs().max()) <= tol
     assert kernels.LAUNCHES["flash_attention"] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,win", [(64, 4), (128, -1), (256, 8)])
+def test_flash_attention_row_sees_no_key_on_card(d, win, dtype):
+    """More queries than keys, causal: the first Sq - Sk rows (qpos < 0)
+    see no key and give 0 (the plain version gives NaN there); every
+    other row within the tolerance of the plain version."""
+    _needs_card()
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    sq, sk = 90, 20
+    rng = np.random.default_rng([d, win + 1, dtype == "bfloat16"])
+    dt = getattr(torch, dtype)
+    q, k, v = (t(a).to("cuda", dt) for a in _qkv(rng, 2, 4, 2, sq, sk, d))
+    got = flash_attention(q, k, v, causal=True, window=win).float()
+    want = attention_ref(q, k, v, causal=True, window=win).float()
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert torch.all(got[:, :, :sq - sk] == 0)
+    assert torch.isnan(want[:, :, :sq - sk]).all()
+    assert float((got[:, :, sq - sk:] - want[:, :, sq - sk:]).abs().max()) \
+        <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,win", [
+    (1, 4, 1, 1100, 1100, 256, True, -1),    # causal: empty halves too
+    (1, 4, 1, 1100, 1100, 256, True, 1000),  # window edges in both halves
+    (1, 2, 1, 70, 1030, 128, False, -1),     # no mask, Sk off the tile
+    (2, 6, 2, 300, 1200, 80, True, -1),      # head dim below its template
+    (1, 4, 2, 1300, 1100, 64, True, -1),     # rows that see no key
+])
+def test_flash_attention_split_keys_on_card(b, hq, hkv, sq, sk, d, causal,
+                                            win):
+    """bf16 launches with few row tiles and long key ranges split each
+    row tile's keys over two blocks, which merge their partial results:
+    within 2e-2 of the plain version, and 0 where a row sees no key."""
+    _needs_card()
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    dev = torch.device("cuda")
+    assert ops._split(torch.bfloat16, b, hq, hkv, sq, sk, d, win, dev)[0] \
+        == 2
+    rng = np.random.default_rng([b, hq, sq, sk, d, win + 1])
+    q, k, v = (t(a).to(dev, torch.bfloat16)
+               for a in _qkv(rng, b, hq, hkv, sq, sk, d))
+    for _ in range(2):   # the second call finds the counters reset
+        got = ops.flash_attention(q, k, v, causal=causal, window=win).float()
+        want = attention_ref(q, k, v, causal=causal, window=win).float()
+        torch.cuda.synchronize()
+        blind = max(0, sq - sk) if causal else 0
+        assert torch.all(got[:, :, :blind] == 0)
+        assert float((got[:, :, blind:] - want[:, :, blind:]).abs().max()) \
+            <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal,win", [(64, True, -1), (128, True, 48),
+                                          (128, False, -1), (256, True, -1)])
+def test_flash_attention_bf16_large_outputs_on_card(d, causal, win):
+    """bf16 outputs of 4 to 8, from sharp scores over few keys, held at
+    atol 2e-2 to the float32 result on the same (bf16) values, as the
+    Pallas kernel computes it with P in float32: rounding the output
+    takes up to 1.56e-2 there, so P itself must be kept to well under
+    bf16's precision."""
+    _needs_card()
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng([d, win + 1, causal])
+    b, hq, hkv, sq, sk = 2, 4, 2, 128, 256
+    q = t(2 * rng.standard_normal((b, hq, sq, d))).to("cuda", torch.bfloat16)
+    k = t(2 * rng.standard_normal((b, hkv, sk, d))).to("cuda",
+                                                       torch.bfloat16)
+    v = t(4.5 + 3 * rng.random((b, hkv, sk, d))).to("cuda", torch.bfloat16)
+    got = flash_attention(q, k, v, causal=causal, window=win).float()
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=win)
+    torch.cuda.synchronize()
+    assert float(want.min()) >= 4 and float(want.max()) < 8
+    assert float((got - want).abs().max()) <= 2e-2
 
 
 @pytest.mark.cuda
