@@ -14,9 +14,11 @@ Phases, each printed as one JSON line:
                  at the main paths' shapes (clock_update and the three
                  tier_compact movers bit-exact, clock_update's wrapper
                  making no CUDA activity but its kernel's launches,
-                 msc_score rtol 1e-5 with
-                 equal argmax; flash_attention at phi4-mini's prefill and
-                 gemma3-1b's shapes, atol 2e-5 f32 / 2e-2 bf16;
+                 msc_score rtol 1e-5 with its own pick equal to the
+                 plain argmax (and the first of equal maxima) and one
+                 CUDA activity a call; flash_attention at phi4-mini's
+                 prefill and gemma3-1b's shapes, atol 2e-5 f32 / 2e-2
+                 bf16;
                  rwkv6_scan at rwkv6-7b's prefill shape and a ragged
                  one, atol 1e-4; mamba_scan at jamba's prefill shape
                  and a ragged one, atol 1e-4), with
@@ -79,7 +81,8 @@ Phases, each printed as one JSON line:
                  the plain movers, and "reference": every lookup equal to
                  the initial table, the end states equal; steps/s,
                  compactions, launches; embed_4096, the same at
-                 EMBED_DIAG_TOKENS a batch, where the "reference" leg may
+                 EMBED_DIAG_TOKENS a batch without the plain-movers leg,
+                 where the "reference" leg may
                  part from the "cuda" one only at a compaction whose
                  candidates the msc_score kernel and the plain scorer rank
                  differently on a near-tie
@@ -236,7 +239,9 @@ def _device_kernels(fn, calls: int) -> tuple:
     ``calls`` calls under the profiler, and their names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):   # the first profile warms CUPTI up; the second counts
+    # the first trace warms CUPTI up; a later one that holds no device
+    # activity at all (CUPTI delivered no record) is taken again
+    for attempt in range(4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -244,9 +249,11 @@ def _device_kernels(fn, calls: int) -> tuple:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.name != "Command Buffer Full"]
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name != "Command Buffer Full"]
+        if attempt > 0 and dev:
+            break
     return len(dev) / calls, sorted({e.name[:60] for e in dev})
 
 
@@ -335,16 +342,38 @@ def check_clock_update(cfg, batch: int, rng) -> dict:
             "kernel_launches": CLOCK_LAUNCHES, "cuda_kernel_names": names}
 
 
+def _host_us(fn, n: int = 2000) -> float:
+    """Mean host microseconds per call of ``fn`` (no device wait: for the
+    pieces of a wrapper)."""
+    for _ in range(20):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
 def check_msc_score(cfg, rng) -> dict:
+    """B2 against its plain version (``msc_scores_ref``) on 64 draws at the
+    full-size config's K and B, scores within rtol 1e-5 and its own pick
+    (``best``) equal to the plain argmax; then 16 draws with the best
+    candidate copied over one candidate before it and one after, where
+    the kernel's tied scores must be equal and ``best`` the first of
+    them.  On every draw ``best`` equals ``pick_best_ref`` of the
+    kernel's scores.  The wrapper's
+    time as ``select_range`` calls it (``check=False``) and with its
+    checks, the launch alone, the host cost of each piece of the wrapper,
+    and the CUDA activities a call makes (the kernel's one launch)."""
     import numpy as np
     import torch
     from repro_torch.kernels.msc_score import ops
-    from repro_torch.kernels.msc_score.ref import msc_scores_ref
+    from repro_torch.kernels.msc_score.ref import msc_scores_ref, pick_best_ref
     dev = torch.device("cuda")
     k, nb = cfg.power_k, cfg.n_buckets
     bw = max(cfg.key_space // nb, 1)
     worst_rel = worst_abs = 0.0
-    for it in range(64):
+    best_equal = ties_first = 0
+    for it in range(80):
         lo = rng.integers(0, cfg.key_space, k)
         hi = np.minimum(lo + rng.integers(1, cfg.key_space // 8, k),
                         cfg.key_space)
@@ -357,21 +386,69 @@ def check_msc_score(cfg, rng) -> dict:
         probs = torch.from_numpy(np.sort(rng.random(4)).astype(
             np.float32)).to(dev)
         want = msc_scores_ref(*args, probs, bucket_width=bw)
-        got = ops.msc_scores(*args, probs, bucket_width=bw)
+        if it >= 64:   # exact ties: the best candidate copied before it
+            m = int(torch.argmax(want))  # and after it
+            tied = [m] + ([int(rng.integers(0, m))] if m > 0 else []) + (
+                [int(rng.integers(m + 1, k))] if m + 1 < k else [])
+            for a in args[:3]:
+                a[tied] = int(a[m])
+            want = msc_scores_ref(*args, probs, bucket_width=bw)
+        got, best = ops.msc_scores(*args, probs, bucket_width=bw)
         torch.cuda.synchronize()
         diff = (want - got).abs()
         worst_abs = max(worst_abs, float(diff.max()))
         worst_rel = max(worst_rel, float((diff / want.abs().clamp(
             min=1e-30)).max()))
-        if int(torch.argmax(want)) != int(torch.argmax(got)):
-            raise AssertionError("msc_score argmax differs from the plain "
-                                 "version")
+        if int(best) != int(pick_best_ref(got)):
+            raise AssertionError("msc_score: the kernel's pick is not the "
+                                 "first maximum of its own scores")
+        if it < 64:
+            best_equal += int(best) == int(torch.argmax(want))
+        else:
+            ties_first += int(best) == min(tied) and bool(
+                (got[tied] == got.max()).all())
     if worst_rel > 1e-5:
         raise AssertionError(f"msc_score rel err {worst_rel} > 1e-5")
-    ms = cuda_ms(lambda: ops.msc_scores(*args, probs, bucket_width=bw), 200)
+    if best_equal != 64 or ties_first != 16:
+        raise AssertionError(f"msc_score: best is the plain argmax in "
+                             f"{best_equal} of 64 draws, the first of equal "
+                             f"maxima in {ties_first} of 16")
+    call = lambda: ops.score_candidates(*args, probs, bucket_width=bw,
+                                        check=False)
+    ms = cuda_ms(call, 200)
+    checked_ms = cuda_ms(lambda: ops.msc_scores(*args, probs,
+                                                bucket_width=bw), 200)
+    per_call, names = _device_kernels(call, 16)
+    if per_call != 1:
+        raise AssertionError(f"msc_score: a score_candidates call makes "
+                             f"{per_call} CUDA activities ({names}), not 1")
+    lib = ops._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    scores = torch.empty(k, dtype=torch.float32, device=dev)
+    best = torch.empty((), dtype=torch.int64, device=dev)
+    ptrs = [a.data_ptr() for a in args] + [probs.data_ptr()]
+    launch = lambda: lib.msc_score_launch(*ptrs, k, nb, bw,
+                                          scores.data_ptr(), best.data_ptr(),
+                                          stream)
+    launch_ms = cuda_ms(launch, 200)
+    pieces = {
+        "check_args": _host_us(lambda: ops.check_args(
+            *args, probs, bucket_width=bw)),
+        "empty_scores": _host_us(lambda: torch.empty(
+            k, dtype=torch.float32, device=dev)),
+        "empty_best": _host_us(lambda: torch.empty(
+            (), dtype=torch.int64, device=dev)),
+        "current_stream_object": _host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "raw_stream": _host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(
+                args[0].device.index)),
+        "launch_only": _host_us(launch),
+        "wrapper": _host_us(call)}
+    torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: msc_scores_ref(*args, probs,
                                               bucket_width=bw), 100)
-    nbytes = k * 4 * 4 + nb * 3 * 4 + nb * 16 + 16
+    nbytes = k * 4 * 4 + nb * 3 * 4 + nb * 16 + 16 + 8
     ops_n = k * nb * 24
     bound_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     bound_ops = 1e3 * ops_n / F32_OPS_PER_S
@@ -379,6 +456,11 @@ def check_msc_score(cfg, rng) -> dict:
             "source": "src/repro_torch/csrc/msc_score.cu",
             "replaces": "src/repro/kernels/msc_score/msc_score.py:52",
             "max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
+            "checked_ms": checked_ms, "launch_only_ms": launch_ms,
+            "host_us": pieces, "cuda_kernels_per_call": per_call,
+            "cuda_kernel_names": names,
+            "best_equal_plain_argmax": f"{best_equal}/64",
+            "ties_first_index": f"{ties_first}/16",
             "plain_ms": plain_ms, "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": None, "shape": {"K": k, "B": nb}}
@@ -754,17 +836,19 @@ def _check_readback(db, keys, batch: int, what: str) -> None:
 
 
 @contextlib.contextmanager
-def _spans():
-    """Wrap the quantized path's host functions in profiler ranges named
-    after them, for the length of a traced window; yields the names.
-    ``drain_tick`` holds ``drain_quantum`` and ``record_drain``."""
+def _spans(targets=None):
+    """Wrap host functions (``targets``: (module, name) pairs; by default
+    the quantized path's) in profiler ranges named after them, for the
+    length of a traced window; yields the names.  ``drain_tick`` holds
+    ``drain_quantum`` and ``record_drain``."""
     from torch.profiler import record_function
     from repro_torch.core import compaction, engine
     from repro_torch.obs import state as obs_state
-    saved = [(m, n, getattr(m, n)) for m, n in (
-        (engine, "drain_tick"), (compaction, "drain_quantum"),
-        (obs_state, "record_drain"), (compaction, "inflight_read"),
-        (compaction, "defer_adjust"))]
+    if targets is None:
+        targets = ((engine, "drain_tick"), (compaction, "drain_quantum"),
+                   (obs_state, "record_drain"), (compaction, "inflight_read"),
+                   (compaction, "defer_adjust"))
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
 
     def wrap(name, fn):
         def run(*a, **kw):
@@ -779,6 +863,62 @@ def _spans():
     finally:
         for m, n, fn in saved:
             setattr(m, n, fn)
+
+
+def select_range_profile(db) -> dict:
+    """One ``msc.select_range`` on ``db``'s state and backend under the
+    profiler (after one untraced call): its device time in all, by the
+    function of ``select_range`` that launched it, and by operator (the
+    top 8; the whole table to chiprun_out/profile_select_range.txt)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import mapper, msc, prng, tracker
+    state, cfg = db.estate.tier, db.cfg
+    call = lambda: msc.select_range(state, cfg, prng.PRNGKey(11),
+                                    backend=db.ecfg.backend)
+    call()
+    torch.cuda.synchronize()
+    with _spans(((msc, "candidate_ranges"), (tracker, "clock_histogram"),
+                 (mapper, "pin_probabilities"),
+                 (msc, "bucket_clock_hist"))) as names, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    # an operator's kernels count for the innermost wrapped function
+    # around it; B2, launched by ctypes under no operator, is named apart
+    by_span = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        us = getattr(e, "self_device_time_total", 0) \
+            if e.device_type == torch.autograd.DeviceType.CPU else 0
+        p = e
+        while us and p is not None and p.name not in names:
+            p = p.cpu_parent
+        if us and p is not None:
+            by_span[p.name] += us / 1e3
+    ka = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+    kern = [e for e in ka if not e.key.startswith(("aten::", "cuda"))
+            and e.key not in names and e.key != "Command Buffer Full"]
+    device_ms = sum(map(dev_us, kern)) / 1e3
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_select_range.txt").write_text(ka.table(
+        sort_by="self_cuda_time_total", row_limit=60))
+    return {"window_ms": 1e3 * window, "device_ms": device_ms,
+            "kernels": sum(e.count for e in kern),
+            "device_ms_by_function": by_span,
+            "msc_score_kernel_ms": sum(dev_us(e) for e in kern
+                                       if "msc_score" in e.key) / 1e3,
+            "device_ms_elsewhere": device_ms - sum(by_span.values()),
+            "top_ops_ms": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in
+                           sorted((e for e in ka if e.key.startswith(
+                               "aten::")), key=dev_us, reverse=True)[:8]],
+            "top_kernels_ms": [(e.key[:60], dev_us(e) / 1e3, e.count)
+                               for e in sorted(kern, key=dev_us,
+                                               reverse=True)[:8]]}
 
 
 def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
@@ -1023,11 +1163,11 @@ def embed_phase(steps: int = EMBED_STEPS, tokens: int = EMBED_TOKENS,
     in every leaf); backend "reference" (every leaf, ``obs.ev_score`` to
     rtol 1e-5: the msc_score kernel sums in another order).  Every step's
     lookup must return each token's initial row exactly (the dense-table
-    check: rows only move).  With ``diagnose`` the "cuda" leg also scores
-    every compaction's candidates with the plain scorer, every leg
-    checksums its tier after every step, the plain-movers leg must match
-    the "cuda" leg at every step, and the "reference" leg may part from it
-    only as ``_explain_divergence`` accounts for."""
+    check: rows only move).  With ``diagnose`` the plain-movers leg is
+    left out, the "cuda" leg also scores every compaction's candidates
+    with the plain scorer, both legs checksum their tier after every
+    step, and the "reference" leg may part from the "cuda" one only as
+    ``_explain_divergence`` accounts for."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1042,9 +1182,12 @@ def embed_phase(steps: int = EMBED_STEPS, tokens: int = EMBED_TOKENS,
            "dim": dim, "fast_rows": fast_rows, "tokens": tokens,
            "steps": steps, "slow_pool_gb": vocab * dim * 4 / 1e9,
            "fast_pool_mb": fast_rows * dim * 4 / 1e6}
-    legs = (("cuda", "cuda", es.prepare_step),
-            ("cuda_plain_movers", "cuda", _prepare_plain_movers),
-            ("reference", "reference", es.prepare_step))
+    # the plain movers' leg runs at EMBED_TOKENS only: at the diagnostic
+    # size it would take a third of the phase, the longest of the smoke
+    legs = (("cuda", "cuda", es.prepare_step),) + (
+        () if diagnose else
+        (("cuda_plain_movers", "cuda", _prepare_plain_movers),)) + (
+        ("reference", "reference", es.prepare_step),)
     ends, per_step, digests, log = {}, {}, {}, []
     for leg, backend, prepare in legs:
         ecfg = es.engine_config(cfg, backend=backend)
@@ -1103,6 +1246,8 @@ def embed_phase(steps: int = EMBED_STEPS, tokens: int = EMBED_TOKENS,
         if out["cuda"]["launches"][name] <= 0:
             fails.append(f"kernel {name} never launched")
     for leg, tol in (("cuda_plain_movers", 0.0), ("reference", 1e-5)):
+        if leg not in ends:
+            continue
         other = dict(_leaves(ends[leg]))
         diff, score_err = [], 0.0
         for name, x in _leaves(ends["cuda"]):
@@ -1150,11 +1295,12 @@ def _visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return int(np.clip(hi - lo, 0, None).sum())
 
 
-def _kernel_instances(report: dict, name: str) -> dict:
-    """Per kernel instance of library ``name``: its tensor-core
-    instructions in the built SASS (``cuobjdump -sass``: HMMA, HGMMA) and
-    its registers and spill bytes from the ptxas report of this run's
-    build."""
+def _kernel_instances(report: dict, name: str,
+                      opcodes=("HMMA", "HGMMA")) -> dict:
+    """Per kernel instance of library ``name``: how many of its built
+    SASS instructions (``cuobjdump -sass``) have each of ``opcodes`` (by
+    default the tensor-core ones), and its registers and spill bytes from
+    the ptxas report of this run's build."""
     import re
     from repro_torch.kernels import build
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
@@ -1164,8 +1310,8 @@ def _kernel_instances(report: dict, name: str) -> dict:
     out = {}
     for part in sass.split("Function : ")[1:]:
         fn = part.split("\n", 1)[0].strip()
-        out[fn] = {"HMMA": len(re.findall(r"\bHMMA\.", part)),
-                   "HGMMA": len(re.findall(r"\bHGMMA\.", part))}
+        out[fn] = {op: len(re.findall(rf"\s{op}[\s.]", part))
+                   for op in opcodes}
     log = report.get(name, {}).get("ptxas", "")
     for m in re.finditer(
             r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
@@ -1260,7 +1406,7 @@ def check_flash_attention(rng, instances: dict) -> dict:
             "shapes": shapes}
 
 
-def check_rwkv6_scan(rng) -> dict:
+def check_rwkv6_scan(rng, instances: dict) -> dict:
     """B8 against its plain version (``rwkv6_ref``) on the card at
     rwkv6-7b's prefill shape and a ragged one: r, k, v, u normal (u not
     zero), w in (0.4, 0.9) as tests/test_kernels.py draws it; atol 1e-4,
@@ -1268,7 +1414,11 @@ def check_rwkv6_scan(rng) -> dict:
     computes WKV-6 (library_ms null).  Bound: r, k, v, w and o moved once
     (u too) at HBM_BYTES_PER_S, and 5 * B * H * T * D^2 float32 FLOPs
     (S^T r and diag(w) S + k v^T per step; the bonus term is O(D)) at
-    F32_OPS_PER_S."""
+    F32_OPS_PER_S.  The row names the launch at the prefill shape: grid,
+    threads, registers and local bytes (``launch_info``), each instance's
+    ptxas registers and spills (``instances``, from
+    ``_kernel_instances``), the resident warps an SM, and the time at
+    twice the heads (two blocks an SM)."""
     import torch
     from repro_torch.kernels.rwkv6_scan import ops
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
@@ -1303,12 +1453,30 @@ def check_rwkv6_scan(rng) -> dict:
         del r, k, v, w, got, want
         torch.cuda.empty_cache()
     main = shapes[0]     # rwkv6-7b's prefill: the rwkv_prefill phase's
+    b, h, tt, d = RWKV_SCAN
+    # twice the heads, two blocks an SM: how far more warps would help
+    gen = torch.Generator(dev).manual_seed(int(rng.integers(1 << 30)))
+    r, k, v = (torch.randn((2 * b, h, tt, d), generator=gen, device=dev)
+               for _ in range(3))
+    w = torch.rand((2 * b, h, tt, d), generator=gen, device=dev) * 0.5 + 0.4
+    u = torch.randn((h, d), generator=gen, device=dev)
+    ms_2x = cuda_ms(lambda: ops.rwkv6_scan(r, k, v, w, u), 10, 2)
+    del r, k, v, w
+    torch.cuda.empty_cache()
+    info = ops.launch_info()
+    grid = b * h
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = min(info["blocks_per_sm"], -(-grid // sms))
+    launch = {"grid": grid, "sms": sms,
+              "resident_warps_per_sm": per_sm * info["threads"] // 32,
+              **info, "instances": instances,
+              "ms_at_twice_the_heads": ms_2x}
     return {"name": "rwkv6_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/rwkv6_scan.cu",
             "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:44",
             **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
-            "shapes": shapes}
+            "launch": launch, "shapes": shapes}
 
 
 def check_mamba_scan(rng) -> dict:
@@ -2185,7 +2353,8 @@ def main() -> int:
     rows = [check_clock_update(full, BATCH, rng), check_msc_score(full, rng)]
     rows += check_tier_compact(full, embed_cfg, rng)
     rows.append(check_flash_attention(rng, flash_sass))
-    rows.append(check_rwkv6_scan(rng))
+    rows.append(check_rwkv6_scan(rng, _kernel_instances(
+        report, "rwkv6_scan", ("FFMA", "FMUL", "FADD", "LDS", "STS"))))
     rows.append(check_mamba_scan(rng))
     emit({"phase": "kernels", "rows": rows})
 
@@ -2262,6 +2431,7 @@ def main() -> int:
                              FULL_PRELOAD_KEYS,
                              profile_steps=FULL_PROFILE_STEPS, record=rec0)
     full_res["phase"] = "main_full"
+    full_res["select_range"] = select_range_profile(db)
     digest = _digest(db.estate.tier)
     del db
     emit(full_res)

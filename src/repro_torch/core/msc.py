@@ -169,13 +169,18 @@ def min_overlap_score(state: TierState, cfg: TierConfig, lo: torch.Tensor,
     return torch.where(t_n > 0, fdiv(1.0, f + 1.0), torch.zeros_like(f))
 
 
+# (TierConfig, device) pairs whose msc_score arguments have been checked
+_KERNEL_ARGS_CHECKED: set = set()
+
+
 def select_range(state: TierState, cfg: TierConfig, key: torch.Tensor,
                  precise: bool = False, cap_fast: int | None = None,
                  cap_slow: int | None = None, selection: str = "msc",
                  backend: str = "reference"
                  ) -> tuple[Candidate, torch.Tensor, torch.Tensor]:
     """Score k power-of-k candidates; returns (candidates, scores, best).
-    ``backend`` routes approx-MSC scoring through the msc_score kernel."""
+    ``backend`` routes approx-MSC scoring through the msc_score kernel,
+    which also picks ``best``: one launch, no ``argmax``."""
     cand = candidate_ranges(state, cfg, key)
     hist = tracker.clock_histogram(state.tracker)
     probs = mapper.pin_probabilities(hist, cfg.pin_threshold)
@@ -189,12 +194,16 @@ def select_range(state: TierState, cfg: TierConfig, key: torch.Tensor,
                           probs, cf, cs) for i in range(cfg.power_k)])
     elif backend != "reference":
         from repro_torch.kernels.msc_score.ops import score_candidates
-        bhist = bucket_clock_hist(state, cfg)
-        scores = score_candidates(
+        # TierState and TierConfig fix these arguments' devices, dtypes and
+        # shapes: they are checked on a config's first compaction only
+        checked = (cfg, cand.lo.device)
+        scores, best = score_candidates(
             cand.lo, cand.hi, cand.t_f, state.bucket_fast, state.bucket_slow,
-            state.bucket_overlap, bhist, probs,
+            state.bucket_overlap, bucket_clock_hist(state, cfg), probs,
             bucket_width=max(cfg.key_space // cfg.n_buckets, 1),
-            backend=backend)
+            backend=backend, check=checked not in _KERNEL_ARGS_CHECKED)
+        _KERNEL_ARGS_CHECKED.add(checked)
+        return cand, scores, best
     else:
         bhist = bucket_clock_hist(state, cfg)
         scores = approx_score(state, cfg, cand.lo, cand.hi, cand.t_f, bhist,

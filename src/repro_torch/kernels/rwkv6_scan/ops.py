@@ -21,14 +21,34 @@ from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
 
 MAX_HEAD_DIM = 64
+_LIB: list = []
+_INFO = ("threads", "registers", "local_bytes", "shared_bytes",
+         "blocks_per_sm")
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("rwkv6_scan")
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.rwkv6_scan_launch.argtypes = [p] * 6 + [i] * 4 + [i64] * 12 + [p]
-    lib.rwkv6_scan_launch.restype = ctypes.c_int
-    return lib
+    if not _LIB:
+        lib = build.load("rwkv6_scan")
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.rwkv6_scan_launch.argtypes = [p] * 6 + [i] * 4 + [i64] * 12 \
+            + [p]
+        lib.rwkv6_scan_launch.restype = ctypes.c_int
+        lib.rwkv6_scan_info.argtypes = [p]
+        lib.rwkv6_scan_info.restype = ctypes.c_int
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def launch_info() -> dict:
+    """The launch shape of the kernel's instance with 16-byte loads (the
+    one aligned inputs with D a multiple of 4 take; one block a (batch,
+    head)): threads a block, registers and local-memory bytes a thread,
+    shared memory a block, and resident blocks an SM."""
+    info = (ctypes.c_int * len(_INFO))()
+    rc = _lib().rwkv6_scan_info(info)
+    if rc != 0:
+        raise RuntimeError(f"rwkv6_scan_info failed: cudaError {rc}")
+    return dict(zip(_INFO, info))
 
 
 def rwkv6_scan(r, k, v, w, u) -> torch.Tensor:

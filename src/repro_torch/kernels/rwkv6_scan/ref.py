@@ -7,6 +7,8 @@ head) with state S in R^{D x D}:
   S_t = diag(w_t) S_{t-1} + k_t v_t^T
 A loop over T in float32 with the state written out; one step is a few
 [B, H, D, D] tensor ops, so on the card it costs a launch each.
+``rwkv6_split_ref`` is the kernel's summation in plain PyTorch: the
+bonus term as v_t times one dot per step.
 """
 from __future__ import annotations
 
@@ -25,4 +27,23 @@ def rwkv6_ref(r, k, v, w, u):
         kv = kf[:, :, i, :, None] * vf[:, :, i, None, :]   # [B, H, D, D]
         out[:, :, i] = (rf[:, :, i, None, :] @ (s + uu * kv))[:, :, 0]
         s = wf[:, :, i, :, None] * s + kv
+    return out.to(r.dtype)
+
+
+def rwkv6_split_ref(r, k, v, w, u):
+    """``rwkv6_ref`` summed as ``csrc/rwkv6_scan.cu`` sums it: the bonus
+    term ``sum_i r_t[i] u[i] k_t[i] v_t[j]`` is ``v_t[j] * beta_t`` with
+    ``beta_t = sum_i r_t[i] u[i] k_t[i]``, so
+    o_t = S_{t-1}^T r_t + v_t beta_t, read before S is updated.  Same
+    arguments and result as ``rwkv6_ref``."""
+    b, h, t, d = r.shape
+    rf, kf, vf, wf = (x.to(torch.float32) for x in (r, k, v, w))
+    beta = (rf * u.to(torch.float32)[None, :, None, :] * kf).sum(-1)
+    s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    out = torch.empty((b, h, t, d), dtype=torch.float32, device=r.device)
+    for i in range(t):
+        out[:, :, i] = (rf[:, :, i, None, :] @ s)[:, :, 0] \
+            + vf[:, :, i] * beta[:, :, i, None]
+        s = wf[:, :, i, :, None] * s + kf[:, :, i, :, None] \
+            * vf[:, :, i, None, :]
     return out.to(r.dtype)

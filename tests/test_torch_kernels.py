@@ -127,10 +127,62 @@ def test_msc_score_plain_vs_jax(nb, k, jax_backend):
         args, bw = _msc_inputs(rng, nb, k, width=nb * 37)
         want = np.asarray(j_score(*map(jnp.asarray, args), bucket_width=bw,
                                   backend=jax_backend))
-        got = score_candidates(*map(t, args), bucket_width=bw,
-                               backend="cuda").numpy()
-        np.testing.assert_allclose(got, want, rtol=1e-5)
-        assert int(np.argmax(got)) == int(np.argmax(want))
+        got, best = score_candidates(*map(t, args), bucket_width=bw,
+                                     backend="cuda")
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+        assert int(best) == int(np.argmax(want))
+
+
+def _tie_candidates(rng, args, want):
+    """Copy the best candidate's (lo, hi, t_f) over one candidate before it
+    and one after it (where there are such): exact ties at the maximum."""
+    k, m = args[0].shape[0], int(np.argmax(want))
+    dup = [rng.integers(0, m)] if m > 0 else []
+    dup += [rng.integers(m + 1, k)] if m + 1 < k else []
+    for a in args[:3]:
+        a[dup] = a[m]
+    return args
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("nb,k", [(64, 8), (256, 8), (16, 4), (64, 32)])
+def test_msc_pick_plain_vs_jax(nb, k, ties):
+    """``pick_best_ref``, the kernel's butterfly pick in plain PyTorch,
+    equal to ``jnp.argmax`` of the JAX package's scores; with ``ties``
+    the best candidate is copied over others before and after it, so the
+    maximum occurs several times and the first index must win."""
+    import jax.numpy as jnp
+    from repro.kernels.msc_score.ops import score_candidates as j_score
+    from repro_torch.kernels.msc_score.ref import pick_best_ref
+    rng = np.random.default_rng([nb, k, ties, 41])
+    n_tied = 0
+    for _ in range(8):
+        args, bw = _msc_inputs(rng, nb, k, width=nb * 37)
+        score = lambda a: np.asarray(j_score(*map(jnp.asarray, a),
+                                             bucket_width=bw,
+                                             backend="reference"))
+        want = score(args)
+        if ties:
+            want = score(_tie_candidates(rng, args, want))
+            n_tied += int((want == want.max()).sum() > 1)
+        got = pick_best_ref(t(want))
+        assert got.dtype == torch.int64 and got.dim() == 0
+        assert int(got) == int(jnp.argmax(jnp.asarray(want)))
+    assert n_tied == (8 if ties else 0)
+
+
+@pytest.mark.parametrize("scores", [
+    [1.0], [0.0] * 8, [2.0, 5.0, 5.0, 1.0], [5.0, 1.0, 5.0, 5.0],
+    [0.0, float("nan"), 3.0, float("nan")], [float("-inf")] * 3,
+    list(range(31, -1, -1)), [1.0] * 31 + [2.0]])
+def test_msc_pick_plain_vs_jnp_argmax(scores):
+    """``pick_best_ref`` against ``jnp.argmax`` on score vectors at the
+    edges of its order: one candidate, all equal, ties at either end,
+    NaN, -inf everywhere (below no padding lane), 32 candidates."""
+    import jax.numpy as jnp
+    from repro_torch.kernels.msc_score.ref import pick_best_ref
+    x = np.asarray(scores, np.float32)
+    assert int(pick_best_ref(t(x))) == int(jnp.argmax(jnp.asarray(x)))
 
 
 # ---------------------------------------------------------- on the card
@@ -175,10 +227,11 @@ def test_msc_score_kernel_on_card(nb, k):
         args, bw = _msc_inputs(rng, nb, k, width=nb * 391)
         cargs = [t(a).cuda() for a in args]
         want = msc_scores_ref(*cargs, bucket_width=bw)
-        got = msc_scores(*cargs, bucket_width=bw)
+        got, best = msc_scores(*cargs, bucket_width=bw)
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-5)
-        assert int(torch.argmax(got)) == int(torch.argmax(want))
+        assert best.dtype == torch.int64 and best.dim() == 0
+        assert int(best) == int(torch.argmax(want))
 
 
 def _msc_inputs_near_clip(rng, nb, k, width):
@@ -231,11 +284,96 @@ def test_msc_score_kernel_near_pin_clip_on_card(nb, k):
         near += int(((p > 0.99) & (p < 0.999)).sum())
         cargs = [t(a).cuda() for a in args]
         want = msc_scores_ref(*cargs, bucket_width=bw).cpu().numpy()
-        got = msc_scores(*cargs, bucket_width=bw).cpu().numpy()
+        got, best = msc_scores(*cargs, bucket_width=bw)
+        got = got.cpu().numpy()
         rtol = 1e-5 + 2 * nb * 2.0**-24 * p / (1 - p)
         assert (np.abs(got - want) <= rtol * np.abs(want)).all()
-        assert int(np.argmax(got)) == int(np.argmax(want))
+        assert int(best) == int(np.argmax(want))
     assert near > 0          # the inputs reach the magnified regime
+
+
+def _cuda_activities(fn, calls: int) -> tuple:
+    """CUDA activities (kernels, copies, fills) per call of ``fn`` under
+    the profiler, their names, and the CPU operators the calls ran."""
+    from torch.profiler import ProfilerActivity, profile
+    # the first trace warms CUPTI up; a later one that holds no device
+    # activity at all (CUPTI delivered no record) is taken again
+    for attempt in range(4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        dev = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name != "Command Buffer Full"]
+        if attempt > 0 and dev:
+            break
+    return len(dev) / calls, sorted(e.name[:60] for e in dev), \
+        {e.name for e in events}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("nb,k", [(256, 8), (64, 32), (16, 1)])
+def test_msc_score_pick_on_card(nb, k, ties):
+    """B2's own pick: ``best`` equal to the plain argmax of the plain
+    scores on tie-free draws; with the best candidate copied over others
+    (exact ties, the kernel's scores of equal candidates bit-equal), the
+    first index among them, as ``pick_best_ref`` and ``torch.argmax``
+    give it on the kernel's scores.  One CUDA activity per
+    ``score_candidates`` call (the kernel: no argmax, no copy)."""
+    _needs_card()
+    from repro_torch.kernels.msc_score.ref import msc_scores_ref, pick_best_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng([nb, k, ties, 7])
+    n0 = kernels.LAUNCHES["msc_score"]
+    for _ in range(16):
+        args, bw = _msc_inputs(rng, nb, k, width=nb * 391)
+        if ties and k > 1:
+            plain = msc_scores_ref(*map(t, args), bucket_width=bw).numpy()
+            args = _tie_candidates(rng, args, plain)
+        cargs = [t(a).cuda() for a in args]
+        got, best = score_candidates(*cargs, bucket_width=bw)
+        want = msc_scores_ref(*cargs, bucket_width=bw)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5)
+        if ties and k > 1:
+            top = got == got.max()
+            assert int(top.sum()) >= 2
+            assert int(best) == int(top.nonzero()[0, 0])
+        assert int(best) == int(torch.argmax(got)) == int(pick_best_ref(got))
+        if not ties:
+            assert int(best) == int(torch.argmax(want))
+    assert kernels.LAUNCHES["msc_score"] == n0 + 16
+    per_call, names, _ = _cuda_activities(
+        lambda: score_candidates(*cargs, bucket_width=bw), 8)
+    assert per_call == 1, names
+
+
+@pytest.mark.cuda
+def test_select_range_launches_no_argmax_on_card():
+    """``select_range`` on backend "cuda" takes ``best`` from B2 (one
+    launch) and runs no ``argmax``; on "reference" it runs the plain
+    scorer and ``argmax``; the two picks agree."""
+    _needs_card()
+    from repro_torch.configs.prismdb_kv import paper_tier_config
+    from repro_torch.core import msc, prng, tiers
+    cfg = paper_tier_config(1)
+    state = tiers.init(cfg, "cuda")
+    key = prng.PRNGKey(3)
+    n0 = kernels.LAUNCHES["msc_score"]
+    _, _, best = msc.select_range(state, cfg, key, backend="cuda")
+    _, _, ops_cuda = _cuda_activities(
+        lambda: msc.select_range(state, cfg, key, backend="cuda"), 1)
+    _, _, want = msc.select_range(state, cfg, key, backend="reference")
+    _, _, ops_ref = _cuda_activities(
+        lambda: msc.select_range(state, cfg, key, backend="reference"), 1)
+    assert kernels.LAUNCHES["msc_score"] == n0 + 1 + 2
+    assert "aten::argmax" not in ops_cuda and "aten::argmax" in ops_ref
+    assert int(best) == int(want)
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -686,6 +824,26 @@ def test_rwkv6_scan_plain_vs_jax(b, h, tt, d, jax_backend):
     assert kernels.LAUNCHES["rwkv6_scan"] == before      # plain on CPU
 
 
+@pytest.mark.parametrize("jax_backend", ["reference", "pallas"])
+@pytest.mark.parametrize("b,h,tt,d", RWKV_SHAPES + [(1, 2, 48, 64)])
+def test_rwkv6_split_plain_vs_jax(b, h, tt, d, jax_backend):
+    """``rwkv6_split_ref``, B8's summation in plain PyTorch (S before its
+    update times r, plus v times the per-step dot beta = r . (u * k)),
+    against the JAX package's ``wkv`` on "reference" and on "pallas"
+    (interpret mode, chunk 16): atol 1e-4."""
+    import jax.numpy as jnp
+    from repro.kernels.rwkv6_scan.ops import wkv as j_wkv
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_split_ref
+    arrs = _rwkv_inputs(np.random.default_rng([b, h, tt, d, 17]), b, h, tt,
+                        d)
+    kw = {"chunk": 16} if jax_backend == "pallas" else {}
+    want = np.asarray(j_wkv(*map(jnp.asarray, arrs), backend=jax_backend,
+                            **kw))
+    got = rwkv6_split_ref(*map(t, arrs))
+    assert got.dtype == torch.float32 and got.shape == (b, h, tt, d)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
 def test_rwkv6_scan_wrapper_refuses_cpu_tensors():
     """The rwkv6_scan launch wrapper validates before it builds or
     launches: CPU tensors are refused, never taken by the plain
@@ -701,7 +859,8 @@ def test_rwkv6_scan_wrapper_refuses_cpu_tensors():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,tt,d", RWKV_SHAPES + [
     (2, 64, 2048, 64),                       # rwkv6-7b's prefill shape
-    (3, 5, 1, 64), (1, 3, 9, 40)])           # one step; D off the 16 grid
+    (3, 5, 1, 64), (1, 3, 9, 40),            # one step; D off the 16 grid
+    (2, 3, 19, 37)])                         # D odd: no float4 loads
 def test_rwkv6_scan_kernel_on_card(b, h, tt, d):
     """B8 against its plain version on the card (atol 1e-4, the JAX
     package's tolerance for this kernel), on contiguous inputs and on
@@ -729,6 +888,30 @@ def test_rwkv6_scan_kernel_on_card(b, h, tt, d):
     want = rwkv6_ref(*bf)
     assert float((got.float() - want.float()).abs().max()) <= 2e-2 * max(
         1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,tt,d", [(2, 4, 70, 64), (1, 3, 9, 40)])
+def test_rwkv6_scan_unaligned_on_card(b, h, tt, d):
+    """B8 on r, k, w that start one float past a 16-byte boundary: the
+    instance without float4 loads, bit-equal to the float4 instance on
+    the same values and within atol 1e-4 of the plain version."""
+    _needs_card()
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
+    arrs = [t(a).cuda() for a in _rwkv_inputs(
+        np.random.default_rng([b, h, tt, d, 5]), b, h, tt, d)]
+    shifted = []
+    for x in arrs[:4]:
+        buf = torch.empty(x.numel() + 1, device="cuda")
+        buf[1:] = x.flatten()
+        shifted.append(buf[1:].view(x.shape))
+    got = rwkv6_scan(*shifted, arrs[4])
+    aligned = rwkv6_scan(*arrs)
+    torch.cuda.synchronize()
+    assert shifted[0].data_ptr() % 16 != 0
+    assert torch.equal(got, aligned)
+    assert float((got - rwkv6_ref(*arrs)).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda
