@@ -135,6 +135,10 @@ EMBED_TOKENS, EMBED_STEPS = 2048, 32
 # the first tie the two scorers break apart (batch 38; PERF.md).
 EMBED_DIAG_TOKENS, EMBED_DIAG_STEPS = 4096, 39
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
+# H100 SXM special function units: 16 exponentials a clock an SM (CUDA C
+# programming guide, throughput of exp2 for compute capability 9.0), 132
+# SMs, 1.98 GHz boost clock (the clock nvidia-smi reads under B9's load)
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # The model phases: phi4-mini-3.8b at its published width (src/repro/
 # configs/phi4_mini_3_8b.py), float32 weights from MODEL_SEED (15.3 GB).
 MODEL = "phi4-mini-3.8b"
@@ -255,6 +259,27 @@ def _device_kernels(fn, calls: int) -> tuple:
         if attempt > 0 and dev:
             break
     return len(dev) / calls, sorted({e.name[:60] for e in dev})
+
+
+def _kernel_ms(fn, calls: int, name: str) -> float:
+    """Mean device time in ms of the CUDA kernels whose name holds
+    ``name``, over ``calls`` calls of ``fn`` under the profiler: the
+    kernel alone, without the host's launch time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(4):       # as _device_kernels: retake an empty trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name]
+        if attempt > 0 and us:
+            return sum(us) / len(us) / 1e3
+    raise AssertionError(f"the profiler saw no {name} kernel")
 
 
 def check_clock_update(cfg, batch: int, rng) -> dict:
@@ -1296,23 +1321,30 @@ def _visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
 
 
 def _kernel_instances(report: dict, name: str,
-                      opcodes=("HMMA", "HGMMA")) -> dict:
-    """Per kernel instance of library ``name``: how many of its built
-    SASS instructions (``cuobjdump -sass``) have each of ``opcodes`` (by
-    default the tensor-core ones), and its registers and spill bytes from
-    the ptxas report of this run's build."""
+                      opcodes=("HMMA", "HGMMA"), lib=None) -> dict:
+    """Per kernel instance of library ``name`` (this tree's build, or the
+    library file ``lib``): how many of its built SASS instructions
+    (``cuobjdump -sass``) have each of ``opcodes`` (by default the
+    tensor-core ones), and its registers and spill bytes from the ptxas
+    report of that build (``report``'s, or the one kept beside the
+    library when this run did not build it)."""
     import re
     from repro_torch.kernels import build
+    lib = Path(lib or build.lib_path(name))
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(build.lib_path(name))], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
     out = {}
     for part in sass.split("Function : ")[1:]:
         fn = part.split("\n", 1)[0].strip()
         out[fn] = {op: len(re.findall(rf"\s{op}[\s.]", part))
                    for op in opcodes}
-    log = report.get(name, {}).get("ptxas", "")
+        out[fn]["instructions"] = len(re.findall(r"/\*[0-9a-f]{4,}\*/",
+                                                 part))
+    log = report.get(name, {}).get("ptxas") or (
+        build.ptxas_path(lib).read_text()
+        if build.ptxas_path(lib).exists() else "")
     for m in re.finditer(
             r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
             r"(\d+) bytes spill stores, (\d+) bytes spill loads\n"
@@ -1479,7 +1511,7 @@ def check_rwkv6_scan(rng, instances: dict) -> dict:
             "launch": launch, "shapes": shapes}
 
 
-def check_mamba_scan(rng) -> dict:
+def check_mamba_scan(rng, instances: dict) -> dict:
     """B9 against its plain version (``mamba_ref``) on the card at jamba's
     prefill shape and a ragged one, with the main path's inputs: x
     normal, dt = softplus(-4.6 + 0.5 N(0, 1)) (near 0.01, as the
@@ -1488,9 +1520,13 @@ def check_mamba_scan(rng) -> dict:
     of one [Bb, T, dt_rank + 2N] projection, as ``mamba_layer`` passes
     them; atol 1e-4, the JAX package's tolerance for this kernel.  No
     single PyTorch call computes the selective scan (library_ms null).
-    Bound: x, dt and y moved once (B, C, A, D too) at HBM_BYTES_PER_S,
-    and 6 float32 FLOPs per state element and step (dt * A, (dt x) * B,
-    the FMA into h, the FMA into y) at F32_OPS_PER_S."""
+    Bound: the largest of x, dt and y moved once (B, C, A, D too) at
+    HBM_BYTES_PER_S, 6 float32 FLOPs per state element and step (dt * A,
+    (dt x) * B, the FMA into h, the FMA into y) at F32_OPS_PER_S, and one
+    exponential per state element and step at SFU_EXP_PER_S (both
+    "operations"; ``bound_parts`` has the three).  The row carries each
+    kernel instance's registers, spills and SASS counts (``instances``,
+    from ``_kernel_instances``); an instance that spills fails."""
     import torch
     from repro_torch.kernels.mamba_scan import ops
     from repro_torch.kernels.mamba_scan.ref import mamba_ref
@@ -1520,23 +1556,28 @@ def check_mamba_scan(rng) -> dict:
         plain_ms = cuda_ms(lambda: mamba_ref(x, dt, a, bm, cm, d), 2, 1)
         nbytes = 4 * (3 * x.numel() + 2 * bm.numel() + a.numel() + di)
         flops = 6 * bb * tt * di * n
-        b_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        b_ops = 1e3 * flops / F32_OPS_PER_S
+        parts = {"bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                 "f32_ops_ms": 1e3 * flops / F32_OPS_PER_S,
+                 "exp_ms": 1e3 * bb * tt * di * n / SFU_EXP_PER_S}
+        bound = max(parts.values())
         shapes.append({
             "tag": tag, "shape": [bb, tt, di, n], "max_abs_err": err,
             "out_max_abs": float(want.abs().max()), "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "bytes" if b_bytes >= b_ops else "operations"})
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+            "bound_by": "bytes" if parts["bytes_ms"] == bound
+            else "operations", "bound_parts": parts})
         del x, dt, proj, got, want
         torch.cuda.empty_cache()
+    spills = [k for k, v in instances.items() if v.get("spill_bytes", 0)]
+    if spills:
+        raise AssertionError(f"mamba_scan: instances that spill: {spills}")
     main = shapes[0]     # jamba's prefill: the jamba_prefill phase's
     return {"name": "mamba_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/mamba_scan.cu",
             "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:45",
             **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
-            "shapes": shapes}
+            "instances": instances, "shapes": shapes}
 
 
 def _argmax_gate(got, ref) -> dict:
@@ -2097,8 +2138,10 @@ def _check_paged_attention(eng, seed: int) -> dict:
     (pages in the slow pool are absent, -1): the entry point
     ``decode_attention`` once (counted), then held against its plain
     version (atol 2e-5: float32 queries, bf16 pages, float32 sums) and
-    timed.  Bound: the bytes of the selected pages' K and V rows, the
-    queries, tables, mask and output, at HBM_BYTES_PER_S."""
+    timed: the wrapper, its C launch alone (both with the host's launch
+    time in them) and the kernel's own device time (profiler).  Bound:
+    the bytes of the selected pages' K and V rows, the queries, tables,
+    mask and output, at HBM_BYTES_PER_S."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import paged_kv
@@ -2130,7 +2173,8 @@ def _check_paged_attention(eng, seed: int) -> dict:
     if not err <= 2e-5:
         raise AssertionError(f"paged_attention: max abs err {err} > 2e-5")
     def timed(bt, tm):
-        """(wrapper ms, bare launch ms, plain ms, bound ms)."""
+        """(wrapper ms, bare launch ms, kernel ms, plain ms, bound ms,
+        pages present)."""
         lib, out = ops._lib(), torch.empty_like(ql)
         stream = torch.cuda.current_stream().cuda_stream
         launch = lambda: lib.paged_attention_launch(
@@ -2144,10 +2188,11 @@ def _check_paged_attention(eng, seed: int) -> dict:
                   + tm.numel())
         return (cuda_ms(lambda: ops.paged_attention(ql, kp, vp, bt, tm), 50),
                 cuda_ms(launch, 200),
+                _kernel_ms(launch, 50, "paged_attention"),
                 cuda_ms(lambda: paged_attention_ref(ql, kp, vp, bt, tm), 20),
                 1e3 * nbytes / HBM_BYTES_PER_S, n_pages)
 
-    ms, launch_ms, plain_ms, bound_ms, n_pages = timed(bt, tm)
+    ms, launch_ms, kernel_ms, plain_ms, bound_ms, n_pages = timed(bt, tm)
     # the same launch with every table entry a page of the fast pool and
     # every token visible: the kernel's bandwidth at the full K pages
     full_bt = torch.argsort(torch.rand((bt.shape[0], cfg.fast_pages),
@@ -2160,7 +2205,8 @@ def _check_paged_attention(eng, seed: int) -> dict:
     if not err_full <= 2e-5:
         raise AssertionError(f"paged_attention (full table): max abs err "
                              f"{err_full} > 2e-5")
-    f_ms, f_launch, f_plain, f_bound, f_pages = timed(full_bt, full_tm)
+    f_ms, f_launch, f_kernel, f_plain, f_bound, f_pages = timed(full_bt,
+                                                                full_tm)
     # the comparison's launches are not the entry point's
     kernels.LAUNCHES["paged_attention"] = before + launches
     return {"name": "paged_attention", "route": "cuda",
@@ -2170,14 +2216,34 @@ def _check_paged_attention(eng, seed: int) -> dict:
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": None,
-            "launch_only_ms": launch_ms,
+            "launch_only_ms": launch_ms, "kernel_ms": kernel_ms,
             "shape": {"q": list(ql.shape), "pool": list(kp.shape),
                       "pool_dtype": "bfloat16", "block_table": list(bt.shape),
                       "pages_present": n_pages, "layer": layer,
                       "tick": eng.stats["steps"]},
             "full_table": {"pages_present": f_pages, "max_abs_err": err_full,
                            "ms": f_ms, "launch_only_ms": f_launch,
+                           "kernel_ms": f_kernel,
                            "plain_ms": f_plain, "bound_ms": f_bound}}
+
+
+def serve_engine(params, cfg, seed: int, backend: str, device=None):
+    """A ``ServeEngine`` at ``cfg``'s width over ``serve_kv_config`` on
+    ``backend``, holding SERVE_REQUESTS requests of SERVE_PROMPT prompt
+    tokens drawn from ``seed`` and SERVE_NEW new tokens each.  Returns
+    (engine, requests)."""
+    import numpy as np
+    from repro_torch.serve.engine import Request, ServeEngine
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT).tolist()
+               for _ in range(SERVE_REQUESTS)]
+    eng = ServeEngine(cfg, serve_kv_config(cfg), params, seed=seed,
+                      backend=backend, device=device)
+    reqs = [Request(rid=i, prompt=p, max_new=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    return eng, reqs
 
 
 def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
@@ -2195,11 +2261,7 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
     import torch
     from repro_torch import kernels
     from repro_torch.core import engine
-    from repro_torch.serve.engine import Request, ServeEngine
     kv_cfg = serve_kv_config(cfg)
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT).tolist()
-               for _ in range(SERVE_REQUESTS)]
     out = {"phase": "serve", "model": cfg.name, "kv": kv_cfg._asdict(),
            "requests": SERVE_REQUESTS, "prompt_tokens": SERVE_PROMPT,
            "max_new": SERVE_NEW,
@@ -2213,12 +2275,7 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
     b6 = None
     for leg in ("cuda", "reference"):
         torch.cuda.reset_peak_memory_stats()
-        eng = ServeEngine(cfg, kv_cfg, params, seed=seed, backend=leg,
-                          device=device)
-        reqs = [Request(rid=i, prompt=p, max_new=SERVE_NEW)
-                for i, p in enumerate(prompts)]
-        for r in reqs:
-            eng.submit(r)
+        eng, reqs = serve_engine(params, cfg, seed, leg, device)
         kernels.reset_launches()
         engine.HOST_READS.n = 0
         walls, comps, digs = [], [], []
@@ -2335,14 +2392,19 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.time() - t0, "built": sorted(report)})
     flash_sass = _kernel_instances(report, "flash_attention")
-    emit({"phase": "sass", "flash_attention": flash_sass})
+    paged_sass = _kernel_instances(report, "paged_attention",
+                                   ("FFMA", "SHFL", "LDG", "MUFU"))
+    emit({"phase": "sass", "flash_attention": flash_sass,
+          "paged_attention": paged_sass})
     bad = [k for k, v in flash_sass.items() if "flash_bf16" in k
            and v["HMMA"] + v["HGMMA"] == 0] + [
         k for k, v in flash_sass.items() if ("Li128E" in k or "Li256E" in k)
-        and v.get("spill_bytes", 0) > 0]
+        and v.get("spill_bytes", 0) > 0] + [
+        k for k, v in paged_sass.items() if v.get("spill_bytes", 0) > 0]
     if bad:
-        raise AssertionError(f"flash_attention: a bf16 instance without "
+        raise AssertionError(f"a flash_attention bf16 instance without "
                              f"tensor-core instructions, or a D 128/256 "
+                             f"flash_attention or any paged_attention "
                              f"instance that spills: {bad}")
 
     from repro_torch.core.embedding_store import EmbedStoreConfig
@@ -2355,7 +2417,9 @@ def main() -> int:
     rows.append(check_flash_attention(rng, flash_sass))
     rows.append(check_rwkv6_scan(rng, _kernel_instances(
         report, "rwkv6_scan", ("FFMA", "FMUL", "FADD", "LDS", "STS"))))
-    rows.append(check_mamba_scan(rng))
+    rows.append(check_mamba_scan(rng, _kernel_instances(
+        report, "mamba_scan", ("FFMA", "FMUL", "FADD", "MUFU", "LDS",
+                               "SHFL"))))
     emit({"phase": "kernels", "rows": rows})
 
     # the model phases: phi4-mini-3.8b at full width, prefill and serving
@@ -2372,7 +2436,7 @@ def main() -> int:
     emit(pre)
     srv, b6 = serve_phase(params, mcfg)
     emit(srv)
-    rows.append(b6)
+    rows.append({**b6, "instances": paged_sass})
     del params
     torch.cuda.empty_cache()
 

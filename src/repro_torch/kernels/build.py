@@ -3,7 +3,8 @@
 Each source ``src/repro_torch/csrc/<name>.cu`` exports a plain C launch
 function and is compiled for Hopper (``sm_90a``) into
 ``build/lib<name>-<hash>.so`` at the repository root (the hash of the
-source names the library, so an edited source builds anew).  Nothing is
+source names the library, so an edited source builds anew), with the
+ptxas report (registers, spills) beside it in ``.ptxas.txt``.  Nothing is
 built when a module is imported: ``load`` builds on first use, and
 ``build_all`` starts one ``nvcc`` per source, all at once.
 """
@@ -43,6 +44,11 @@ def lib_path(name: str) -> Path:
     return BUILD / f"lib{name}-{digest}.so"
 
 
+def ptxas_path(lib: Path) -> Path:
+    """Where the ptxas report of library file ``lib`` is kept."""
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build_all(names=SOURCES) -> dict:
     """Compile every missing library in parallel.  Returns, per source,
     the ptxas report (registers, shared memory, spills) and the wall
@@ -67,6 +73,7 @@ def build_all(names=SOURCES) -> dict:
         if p.returncode != 0:
             errors.append(f"{name}: nvcc exited {p.returncode}\n{log}")
         else:
+            ptxas_path(out).write_text(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))

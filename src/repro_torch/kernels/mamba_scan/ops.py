@@ -67,7 +67,7 @@ def mamba_scan(x, dt, A, B, C, D) -> torch.Tensor:
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), D.data_ptr(), y.data_ptr(), bb, t, di, n,
         *x.stride()[:2], *dt.stride()[:2], *B.stride()[:2],
-        *C.stride()[:2], torch.cuda.current_stream(dev).cuda_stream)
+        *C.stride()[:2], torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"mamba_scan launch failed: cudaError {rc}")
     kernels.LAUNCHES["mamba_scan"] += 1

@@ -83,7 +83,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, token_mask, *,
         block_tables.data_ptr(), token_mask.data_ptr(), out.data_ptr(),
         _DTYPES[q.dtype], _DTYPES[k_pages.dtype], b, hq, hkv, d, p_, t,
         kpages, k_pages.stride(0), scale,
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {rc}")
     kernels.LAUNCHES["paged_attention"] += 1
@@ -95,8 +95,12 @@ def decode_attention(q, k_pages, v_pages, block_tables, token_mask, *,
     """Decode-step attention over selected KV pages: q [B, Hq, D]; pools
     [P, T, Hkv, D]; block_tables [B, K]; token_mask [B, K, T]."""
     if backend_mod.use_kernel(backend, q):
-        return paged_attention(q, k_pages, v_pages,
-                               block_tables.to(torch.int32).contiguous(),
-                               token_mask.to(torch.bool).contiguous())
+        # copy the table and the mask only where the kernel needs it
+        if block_tables.dtype != torch.int32 \
+                or not block_tables.is_contiguous():
+            block_tables = block_tables.to(torch.int32).contiguous()
+        if token_mask.dtype != torch.bool or not token_mask.is_contiguous():
+            token_mask = token_mask.to(torch.bool).contiguous()
+        return paged_attention(q, k_pages, v_pages, block_tables, token_mask)
     return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                token_mask)

@@ -611,6 +611,55 @@ def test_paged_attention_plain_sees_nothing_gives_zero():
     assert np.all(got == 0) and np.all(want == 0)
 
 
+MERGE_CASES = {             # [B, Hq, Hkv, D, P, T, K]
+    "paged0": PAGED_SHAPES[0], "paged1": PAGED_SHAPES[1],
+    "paged2": PAGED_SHAPES[2], "group_sees_nothing": (3, 6, 2, 32, 24, 8, 13),
+    "nothing_seen": (3, 6, 2, 32, 24, 8, 13),
+    "k_below_groups": (3, 6, 2, 32, 24, 8, 3)}
+
+
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("case", list(MERGE_CASES))
+def test_paged_attention_merge_plain_vs_jax(case, groups):
+    """``merge_partials_ref`` (B6's split of the page walk over W warps,
+    page j to warp j % W, each with its own online softmax, merged once)
+    against ``paged_attention_ref`` and the JAX package's
+    ``decode_attention(backend="pallas")`` in interpret mode, atol 2e-5
+    (float32), for W 1, 4 and 8: on PAGED_SHAPES; with one group that
+    sees no page (absent pages; and, for a second sequence, a group whose
+    tokens are all masked); with every page absent (0, no NaN); and with
+    fewer pages than groups."""
+    import jax.numpy as jnp
+    from repro.kernels.paged_attention.ops import decode_attention as j_dec
+    from repro_torch.kernels.paged_attention.ref import (merge_partials_ref,
+                                                         paged_attention_ref)
+    b, hq, hkv, d, P, T, K = MERGE_CASES[case]
+    rng = np.random.default_rng([groups, K, P, len(case)])
+    q = rng.normal(size=(b, hq, d)).astype(np.float32)
+    kp = rng.normal(size=(P, T, hkv, d)).astype(np.float32)
+    vp = rng.normal(size=(P, T, hkv, d)).astype(np.float32)
+    bt = rng.integers(-1, P, size=(b, K)).astype(np.int32)
+    tm = rng.random((b, K, T)) > 0.2
+    bt[:, 0], tm[:, 0, 0] = 0, True
+    group = np.arange(K) % groups
+    if case == "group_sees_nothing":
+        bt[:, group == groups - 1 if groups > 1 else np.arange(K) >= K // 2] \
+            = -1
+        if groups > 1:
+            tm[1, group == 0] = False
+    elif case == "nothing_seen":
+        bt[:] = -1
+    want = np.asarray(j_dec(*map(jnp.asarray, (q, kp, vp, bt, tm)),
+                            backend="pallas"))
+    got = merge_partials_ref(t(q), t(kp), t(vp), t(bt), t(tm), groups)
+    plain = paged_attention_ref(t(q), t(kp), t(vp), t(bt), t(tm))
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=2e-5)
+    if case == "nothing_seen":
+        assert np.all(got.numpy() == 0) and np.all(want == 0)
+
+
 def test_attention_wrappers_refuse_cpu_tensors():
     """The flash_attention and paged_attention launch wrappers validate
     before they build or launch: CPU tensors are refused."""
@@ -755,13 +804,16 @@ def test_flash_attention_bf16_large_outputs_on_card(d, causal, win):
 @pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hkv,d,P,T,K", PAGED_SHAPES + [
     (16, 24, 8, 128, 128, 16, 16),           # the serve phase's shapes
-    (2, 8, 2, 256, 9, 5, 6)])
+    (2, 8, 2, 256, 9, 5, 6),
+    (1, 6, 2, 36, 9, 5, 4),                  # bf16 rows not 16-byte words
+    (2, 2, 1, 10, 5, 3, 2)])                 # no 16-byte words at all
 def test_paged_attention_kernel_on_card(b, hq, hkv, d, P, T, K, pool_dtype,
                                         q_dtype):
     """B6 against its plain version on the card (atol 2e-5 for float32
     queries, 2e-2 for bf16), on contiguous pools and on one layer of
     slot-major [L, P, T, H, D] pools (pages L rows apart); a sequence
-    that sees nothing gives 0."""
+    that sees nothing gives 0.  D 36 (bf16) and D 10 take the kernel's
+    scalar loads."""
     _needs_card()
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -786,6 +838,42 @@ def test_paged_attention_kernel_on_card(b, hq, hkv, d, P, T, K, pool_dtype,
         assert float((got.float() - want.float()).abs().max()) <= tol
         assert float(got[-1].float().abs().max()) == 0.0
     assert kernels.LAUNCHES["paged_attention"] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 7, 64, "absent"])
+def test_paged_attention_pages_on_card(k, pool_dtype, q_dtype):
+    """B6 at the serve phase's G 3, D 128 and 16-token pages with one page
+    a sequence, fewer pages than the block's 8 warps (7), 8 a warp (64),
+    and every page of every sequence absent (output 0, no NaN), against
+    its plain version (tolerances of
+    ``test_paged_attention_kernel_on_card``)."""
+    _needs_card()
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    b, hq, hkv, d, P, T = 3, 24, 8, 128, 80, 16
+    K = 4 if k == "absent" else k
+    rng = np.random.default_rng([K, pool_dtype == "float32",
+                                 q_dtype == "float32"])
+    pdt, qdt = getattr(torch, pool_dtype), getattr(torch, q_dtype)
+    q = t(rng.normal(size=(b, hq, d)).astype(np.float32)).to("cuda", qdt)
+    kp, vp = (t(rng.normal(size=(P, T, hkv, d)).astype(np.float32))
+              .to("cuda", pdt) for _ in range(2))
+    bt = rng.integers(-1, P, size=(b, K)).astype(np.int32)
+    if k == "absent":
+        bt[:] = -1
+    tm = t(rng.random((b, K, T)) > 0.2).cuda()
+    bt = t(bt).cuda()
+    got = paged_attention(q, kp, vp, bt, tm)
+    want = paged_attention_ref(q, kp, vp, bt, tm)
+    torch.cuda.synchronize()
+    assert got.dtype == qdt and bool(torch.isfinite(got.float()).all())
+    tol = 2e-5 if q_dtype == "float32" else 2e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    if k == "absent":
+        assert float(got.float().abs().max()) == 0.0
 
 
 # ------------------------------------------------------------- rwkv6 scan
@@ -1032,6 +1120,32 @@ def test_mamba_scan_kernel_on_card(bb, tt, di, n):
     want = mamba_ref(*bf)
     assert float((got.float() - want.float()).abs().max()) <= 2e-2 * max(
         1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 8, 16])
+def test_mamba_scan_states_on_card(n):
+    """B9 at every states-a-lane instance, a channel's N states split over
+    two lanes (N 1, 3, 4, 8, 16: 1, 2, 2, 4 and 8 states a lane, states
+    past N idle), at Di 45 (two warps of 16 channels and a partial one
+    of 13) and T 37 (off the chunk), with B and C column slices at an
+    odd offset of a projection whose row stride, 3 + 2N, is no multiple
+    of 4: atol 1e-4 against the plain version."""
+    _needs_card()
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.mamba_scan.ref import mamba_ref
+    bb, tt, di = 2, 37, 45
+    arrs = [t(a).cuda() for a in _mamba_inputs(
+        np.random.default_rng([n, di]), bb, tt, di, n)]
+    want = mamba_ref(*arrs)
+    proj = torch.zeros((bb, tt, 3 + 2 * n), device="cuda")
+    proj[..., 3:3 + n], proj[..., 3 + n:] = arrs[3], arrs[4]
+    bm, cm = proj[..., 3:3 + n], proj[..., 3 + n:]
+    assert bm.stride(1) % 4 != 0 and cm.stride(1) % 4 != 0
+    got = mamba_scan(arrs[0], arrs[1], arrs[2], bm, cm, arrs[5])
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda
