@@ -76,6 +76,26 @@ Phases, each printed as one JSON line:
                  modeled p50/p99/p999, host reads per step, peak memory,
                  kernel launches, device busy share; read-back of a sample
                  of preloaded keys (value == key) and of deleted keys
+  4b. workloads -- PrismDB(paper_tier_config(SCALE)), 50% preload, through
+                 run_workload: YCSB A-F, the three Twitter clusters,
+                 hotset-shift and flash-crowd, WORKLOAD_BATCHES batches
+                 each, backend "cuda" then "reference" on the card:
+                 StepStats, per-op results and end states equal (or
+                 parted only at an msc_score near-tie), YCSB-E returns
+                 scan keys, device-to-host copies (counted at the
+                 dispatcher; the profiler's count reported) equal the
+                 engine's host reads, acknowledged writes read back;
+                 per segment ops/s, step p50/p90, compactions, host reads
+                 a step, launches
+  4c. three_tier -- three_tier_config(SCALE) (DRAM / XPoint / QLC slots
+                 and costs of the JAX package's tier-sweep-n3), preloaded,
+                 YCSB-A and YCSB-C through run_workload on "cuda" and
+                 "reference": both boundaries compact, per-boundary
+                 events equal commits, tiers within their slots, no
+                 orphaned row, read-back of preloaded and deleted keys,
+                 one deep compaction's device time; three_tier_quantum,
+                 the "cuda" leg at compaction_quantum=DRAIN_Q, whose
+                 per-op results and end state equal three_tier's
   5. embed    -- the embedding row store at gemma3-1b's width through
                  engine_init + prepare_step, backend "cuda", "cuda" with
                  the plain movers, and "reference": every lookup equal to
@@ -832,17 +852,22 @@ def _same_run(dk, rk, dr, rr) -> dict:
 # ------------------------------------------------------------ phase 4
 
 def _orphan_keys(db):
-    """Keys in slow-tier rows whose run id has no directory entry (the
-    run directory was full when they were written): unreachable by gets."""
+    """Keys in run-structured rows whose run id has no directory entry
+    (the run directory was full when they were written): unreachable by
+    gets."""
+    import torch
     st = db.estate.tier
-    return st.keys[1][(st.runs[0] >= db.cfg.max_runs) & (st.keys[1] >= 0)]
+    return torch.cat([k[(r >= db.cfg.max_runs) & (k >= 0)]
+                      for r, k in zip(st.runs, st.keys[1:])])
 
 
-def _check_readback(db, keys, batch: int, what: str) -> None:
+def _check_readback(db, keys, batch: int, what: str,
+                    orphans_ok: bool = False) -> int:
     """Raise unless every key of ``keys`` is found with value == key.  A
     failure says how many of the lost keys sit in orphaned slow rows (the
-    reference's run-directory overflow, ROADMAP Queue 3) and how many do
-    not (a fault of the port)."""
+    reference's run-directory overflow, ROADMAP Queue 3, F1) and how many
+    do not (a fault of the port).  With ``orphans_ok`` it raises for the
+    latter alone and returns the count of the former."""
     import torch
     lost = []
     for i in range(0, keys.numel(), batch):
@@ -851,13 +876,15 @@ def _check_readback(db, keys, batch: int, what: str) -> None:
         ok = found & (vals == k[:, None].to(torch.float32)).all(dim=1)
         lost.append(k[~ok])
     lost = torch.cat(lost)
-    if lost.numel():
-        orphaned = int(torch.isin(lost, _orphan_keys(db)).sum())
+    orphaned = int(torch.isin(lost, _orphan_keys(db)).sum()) \
+        if lost.numel() else 0
+    if lost.numel() > (orphaned if orphans_ok else 0):
         raise AssertionError(
             f"read-back {what}: {lost.numel()} of {keys.numel()} keys not "
             f"found with value == key; {orphaned} of them in slow rows no "
             f"run-directory entry covers (reference fault), "
             f"{lost.numel() - orphaned} elsewhere (port fault)")
+    return orphaned
 
 
 @contextlib.contextmanager
@@ -1096,6 +1123,434 @@ def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
     return out, db
+
+
+# ------------------------------------------------------------ phase 4b
+
+# The paper's traffic through PrismDB.run_workload (repro_torch.workloads):
+# each segment restarts the stream from its own seed, so a phased
+# scenario runs all its phases
+WORKLOAD_SEGMENTS = tuple(("ycsb", k) for k in "ABCDEF") + tuple(
+    ("twitter", c) for c in ("cluster39", "cluster19", "cluster51")) + (
+    ("scenario", "hotset-shift"), ("scenario", "flash-crowd"))
+WORKLOAD_BATCHES = 16          # client batches per workload segment
+WORKLOAD_SEED = 100
+WORKLOAD_PROFILE_STEPS = 8     # a YCSB-A window under the profiler
+# three tiers: DRAM / 3D XPoint / QLC at the equal-budget slot split and
+# per-tier costs of benchmarks/paper_benchmarks.py:496-498,549-551
+# (TIER_SWEEP_DRAM, _XPOINT, _QLC and the tier-sweep-n3 slots)
+THREE_TIER_COST = ((0.2, 0.2, 0.2, 0.2), (6.0, 10.0, 0.5, 1.0),
+                   (391.0, 391.0, 0.5, 1.0))
+THREE_TIER_SEGMENTS = (("ycsb", "A"), ("ycsb", "C"))
+THREE_TIER_BATCHES = 32
+# half the key space, as main preloads: below the run-directory overflow
+# of every lower tier (ROADMAP Queue 3, F1), which the phase checks
+THREE_TIER_PRELOAD_FRAC = 2
+# keys deleted in the read-back: a delete batch's tombstones need free
+# tier-0 slots (the reference drops those that find none, ROADMAP Queue
+# 3, F5), and below the high watermark tier 0 keeps at least 2% of its
+# key_space / 32 slots free (491 at SCALE)
+THREE_TIER_DELETES = 256
+
+
+def three_tier_config(scale: int):
+    """``paper_tier_config(scale)`` as DRAM / XPoint / QLC tiers of
+    key_space / 32, / 16 and the whole key space; ``fast_slots`` follows
+    tier 0 (the pin budget's capacity guard reads it)."""
+    from repro_torch.configs.prismdb_kv import paper_tier_config
+    cfg = paper_tier_config(scale)
+    ks = cfg.key_space
+    return cfg._replace(fast_slots=ks // 32,
+                        tier_slots=(ks // 32, ks // 16, ks))
+
+
+def _work(kind: str, name: str, key_space: int, n: int):
+    from repro_torch import workloads as W
+    if kind == "ycsb":
+        return W.ycsb(name)
+    if kind == "twitter":
+        return W.twitter(name)
+    return W.scenario(name, key_space, n)
+
+
+@contextlib.contextmanager
+def _stepped(walls: list, record: list):
+    """While open, every ``engine.engine_step`` synchronises after itself,
+    appends its wall time to ``walls`` and its OpResult (device tensors:
+    no host read) to ``record``."""
+    import torch
+    from repro_torch.core import engine
+    orig = engine.engine_step
+
+    def step(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        record.append(tuple(out[1]))
+        return out
+
+    engine.engine_step = step
+    try:
+        yield
+    finally:
+        engine.engine_step = orig
+
+
+def _workload_leg(cfg, backend: str, segments, n_batches: int, n_pre: int,
+                  quantum: int = 0, cost=None, log=None, device=None):
+    """One leg of a workload phase: ``PrismDB(cfg)`` on ``backend``,
+    preloaded with ``n_pre`` keys, then each segment through
+    ``run_workload`` with every step timed; on backend "cuda", a profiled
+    window on a copy (``_dtoh_probe``).  Returns (line, db, records) with
+    ``records`` the per-segment StepStats, per-op results, compaction
+    counts and tier checksums."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.core.db import PrismDB
+    from repro_torch.obs.state import ObsConfig
+    torch.cuda.reset_peak_memory_stats()
+    db = PrismDB(cfg, seed=0, backend=backend, device=device,
+                 compaction_quantum=quantum,
+                 obs=ObsConfig(cost=cost) if cost else None)
+    kernels.reset_launches()
+    engine.HOST_READS.n = 0
+    pre = torch.from_numpy(np.random.default_rng(1).permutation(n_pre)
+                           .astype(np.int32)).to(db.device)
+    rec = {"stats": [], "results": [], "comps": [], "digests": []}
+    out = {"backend": backend, "preload_keys": n_pre, "segments": {}}
+    # the near-tie log covers every slab compaction, the preload's too
+    scoring = _score_log(log) if log is not None else \
+        contextlib.nullcontext()
+    with scoring:
+        t0 = time.time()
+        for i in range(0, n_pre, BATCH):
+            db.put(pre[i:i + BATCH])
+        torch.cuda.synchronize()
+        out["preload_s"] = time.time() - t0
+        out["preload_comp_by_boundary"] = db.counters["comp_by_boundary"]
+        for j, (kind, name) in enumerate(segments):
+            work = _work(kind, name, cfg.key_space, n_batches)
+            db.reset_workload(seed=WORKLOAD_SEED + j)
+            c0, l0 = db.counters, dict(kernels.LAUNCHES)
+            h0, walls, res = engine.HOST_READS.n, [], []
+            with _stepped(walls, res):
+                t0 = time.time()
+                st = db.run_workload(work, n_batches, BATCH)
+                dt = time.time() - t0
+            c1, w = db.counters, np.asarray(walls) * 1e3
+            seg = {"ops_per_s": n_batches * BATCH / dt,
+                   "step_ms_p50": float(np.percentile(w, 50)),
+                   "step_ms_p90": float(np.percentile(w, 90)),
+                   "compactions": c1["compactions"] - c0["compactions"],
+                   "host_reads_per_step":
+                       (engine.HOST_READS.n - h0) / n_batches,
+                   "launches": {k: kernels.LAUNCHES[k] - l0[k]
+                                for k in kernels.LAUNCHES
+                                if kernels.LAUNCHES[k] > l0[k]},
+                   "kinds": torch.bincount(st.kind.long(), minlength=4)
+                   .tolist(), "scan_keys": int(st.returned.sum())}
+            if cfg.n_tiers > 2:
+                seg["comp_by_boundary"] = [
+                    a - b for a, b in zip(c1["comp_by_boundary"],
+                                          c0["comp_by_boundary"])]
+            out["segments"][f"{kind}-{name}"] = seg
+            rec["stats"].append(st)
+            rec["results"].append(res)
+            rec["comps"].append(c1["comp_by_boundary"][0])
+            rec["digests"].append(_digest(db.estate.tier))
+    rec["end"] = _digest(db.estate.tier)
+    c = db.counters
+    out.update({"steps": db.dispatches,
+                "host_reads_per_step": engine.HOST_READS.n / db.dispatches,
+                "compactions": c["compactions"],
+                "comp_by_boundary": c["comp_by_boundary"],
+                "orphaned_rows": int(_orphan_keys(db).numel()),
+                "max_memory_allocated_gib":
+                    torch.cuda.max_memory_allocated() / 2**30,
+                "launches": dict(kernels.LAUNCHES)})
+    if backend == "cuda" and device is None:
+        out["profile"] = _dtoh_probe(db)
+    return out, db, rec
+
+
+def _d2h_counter():
+    """A dispatch mode counting the operators that take a CUDA tensor and
+    give a host tensor (``_to_copy`` to the CPU, ``copy_`` into a host
+    tensor) or a host scalar (``_local_scalar_dense``, under ``item``), as
+    PyTorch's dispatcher sees them: every device-to-host copy, whatever
+    the profiler records."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class D2H(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(getattr(a, "is_cuda", False) for a in args) and (
+                    "_local_scalar_dense" in str(func)
+                    or (hasattr(out, "is_cuda") and not out.is_cuda)):
+                self.n += 1
+            return out
+
+    return D2H()
+
+
+def _dtoh_probe(db) -> dict:
+    """A YCSB-A window of WORKLOAD_PROFILE_STEPS steps on two copies of
+    ``db`` (``db`` keeps its state): one under the profiler (the device
+    busy share, and CUPTI's count of device-to-host copies, which must
+    not exceed the engine's host reads), one under a dispatch-mode count
+    of every device-to-host copy, which must equal them.  CUPTI has
+    dropped copy records late in a long process (PERF.md §7), so the
+    equality is held on the dispatcher's count."""
+    import copy
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import workloads as W
+    from repro_torch.core import engine
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0))
+
+    def window(ctx):
+        probe = copy.copy(db)
+        probe.estate = engine.dealias(db.estate)
+        h0 = engine.HOST_READS.n
+        torch.cuda.synchronize()
+        with ctx:
+            t0 = time.time()
+            probe.run_workload(W.ycsb("A"), WORKLOAD_PROFILE_STEPS, BATCH)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        return engine.HOST_READS.n - h0, dt
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    reads, dt = window(prof)
+    ka = prof.key_averages()
+    count = _d2h_counter()
+    reads2, _ = window(count)
+    out = {"steps": WORKLOAD_PROFILE_STEPS, "window_s": dt,
+           "device_busy_share": sum(
+               dev_us(e) for e in ka if not e.key.startswith(
+                   ("aten::", "cuda")) and e.key != "Command Buffer Full")
+           / 1e6 / dt,
+           "host_reads": reads,
+           "dtoh_copies_profiler": sum(e.count for e in ka
+                                       if "DtoH" in e.key),
+           "dtoh_copies": count.n}
+    if count.n != reads2 or reads2 != reads \
+            or out["dtoh_copies_profiler"] > reads:
+        raise AssertionError(f"device-to-host copies differ from the "
+                             f"engine's host reads: {out}")
+    return out
+
+
+def _compare_legs(a: dict, b: dict, log) -> dict:
+    """Two legs' records: StepStats and per-op results of every segment
+    equal up to the first segment whose tier checksums differ, end states
+    equal, or parted there only at an msc_score near-tie
+    (``_explain_divergence``, segment by segment)."""
+    import torch
+    why = _explain_divergence(log or [], a["comps"], {
+        "cuda": a["digests"], "reference": b["digests"]})
+    first = why["first_step_tier_differs"]
+    n = len(a["stats"]) if first is None else first + 1
+    for j in range(n):
+        for x, y in zip(a["stats"][j], b["stats"][j]):
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"segment {j}: StepStats differ")
+        _same_results(a["results"][j], b["results"][j])
+    if first is None and a["end"] != b["end"]:
+        raise AssertionError("end states differ")
+    return {"segments_equal": n if first is None else first,
+            "end_equal": a["end"] == b["end"], "divergence": why}
+
+
+def _acked_keys(db, segments, n_batches: int, pre, n: int, seed: int):
+    """``n`` distinct keys drawn from the preload and from every put the
+    segments made (their streams drawn again on the host)."""
+    import numpy as np
+    import torch
+    from repro_torch import workloads as W
+    from repro_torch.core import engine, prng
+    keys = [pre.cpu()]
+    for j, (kind, name) in enumerate(segments):
+        ops, _ = W.sample_ops(prng.PRNGKey(WORKLOAD_SEED + j),
+                              _work(kind, name, db.cfg.key_space,
+                                    n_batches), n_batches, BATCH,
+                              key_space=db.cfg.key_space,
+                              value_width=db.cfg.value_width, device="cpu")
+        keys.append(ops.keys[ops.kind == engine.PUT].reshape(-1))
+    allk = torch.unique(torch.cat(keys)).numpy()
+    pick = np.random.default_rng(seed).choice(allk, min(n, allk.size),
+                                              replace=False)
+    return torch.from_numpy(pick.astype(np.int32)).to(db.device)
+
+
+def workloads_phase(device=None) -> dict:
+    """``PrismDB(paper_tier_config(SCALE))`` with a 50% preload through
+    ``run_workload``: YCSB A-F, the three Twitter clusters, hotset-shift
+    and flash-crowd, WORKLOAD_BATCHES batches each, on backend "cuda" and
+    again "reference" on the card.  Every segment's StepStats and per-op
+    results and the end states equal (or parted only at an msc_score
+    near-tie), B1 and B2 launched on the "cuda" leg, YCSB-E returns scan
+    keys, device-to-host copies equal the engine's host reads
+    (``_dtoh_probe``), and a sample of acknowledged writes reads back
+    with value == key, but for those in rows the reference's full run
+    directory orphaned (F1, counted)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.prismdb_kv import paper_tier_config
+    cfg = paper_tier_config(SCALE)
+    n_pre = cfg.key_space // 2
+    out = {"phase": "workloads", "scale": SCALE, "key_space": cfg.key_space,
+           "batch": BATCH, "batches_per_segment": WORKLOAD_BATCHES}
+    recs, log, dbs = {}, [], {}
+    for leg in ("cuda", "reference"):
+        out[leg], dbs[leg], recs[leg] = _workload_leg(
+            cfg, leg, WORKLOAD_SEGMENTS, WORKLOAD_BATCHES, n_pre,
+            log=log if leg == "cuda" else None, device=device)
+        print(f"# workloads {leg}: {out[leg]['compactions']} compactions",
+              file=sys.stderr, flush=True)
+        if leg == "reference":
+            del dbs[leg]
+            torch.cuda.empty_cache()
+    out["legs"] = _compare_legs(recs["cuda"], recs["reference"], log)
+    fails = []
+    if not out["legs"]["divergence"]["explained"]:
+        fails.append("the legs part where no msc_score near-tie accounts "
+                     "for it")
+    cu = out["cuda"]
+    for name in ("clock_update", "msc_score"):
+        if cu["launches"][name] <= 0:
+            fails.append(f"kernel {name} never launched")
+    if cu["segments"]["ycsb-E"]["scan_keys"] <= 0:
+        fails.append("YCSB-E returned no scan keys")
+    if fails:
+        emit(out)
+        raise AssertionError("workloads: " + "; ".join(fails))
+    db = dbs["cuda"]
+    pre = torch.from_numpy(np.random.default_rng(1).permutation(n_pre)
+                           .astype(np.int32))
+    sample = _acked_keys(db, WORKLOAD_SEGMENTS, WORKLOAD_BATCHES, pre,
+                         65536, seed=5)
+    # the 50% preload and the segments' puts fill the run directory: the
+    # reference orphans rows (F1), and the port with it; every other
+    # acknowledged write must read back
+    out["readback_keys"] = int(sample.numel())
+    out["readback_lost_to_f1"] = _check_readback(
+        db, sample, BATCH, "after the workloads", orphans_ok=True)
+    out["ok"] = True
+    return out
+
+
+def three_tier_phase(quantum: int = 0, base=None, device=None):
+    """``three_tier_config(SCALE)`` priced with THREE_TIER_COST, preloaded
+    with key_space / THREE_TIER_PRELOAD_FRAC keys, then YCSB-A and
+    YCSB-C through ``run_workload``; at quantum 0 on backend "cuda" and
+    again "reference" (equal, or parted only at an msc_score near-tie),
+    at ``quantum`` > 0 on "cuda" alone, whose per-op results and end
+    state must equal those of ``base`` (the quantum-0 "cuda" leg's
+    records).  Both boundaries compact, per-boundary events equal
+    per-boundary commits, every tier within its slots, no orphaned row,
+    the device time of one deep compaction, and read-back of sampled
+    preloaded keys and of deleted ones.  Returns (line, records)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import compaction, engine
+    from repro_torch.obs.cost import CostModel, TierCost
+    cfg = three_tier_config(SCALE)
+    cost = CostModel(tiers=tuple(TierCost(*c) for c in THREE_TIER_COST))
+    n_pre = cfg.key_space // THREE_TIER_PRELOAD_FRAC
+    out = {"phase": "three_tier_quantum" if quantum else "three_tier",
+           "scale": SCALE, "quantum": quantum, "tier_slots": cfg.tier_slots,
+           "max_runs": cfg.max_runs, "run_size": cfg.run_size,
+           "cost": THREE_TIER_COST, "batch": BATCH,
+           "batches_per_segment": THREE_TIER_BATCHES}
+    legs = ("cuda", "reference") if quantum == 0 else ("cuda",)
+    recs, log, dbs = {}, [], {}
+    for leg in legs:
+        out[leg], dbs[leg], recs[leg] = _workload_leg(
+            cfg, leg, THREE_TIER_SEGMENTS, THREE_TIER_BATCHES, n_pre,
+            quantum=quantum, cost=cost,
+            log=log if leg == "cuda" and quantum == 0 else None,
+            device=device)
+        print(f"# {out['phase']} {leg}: comp_by_boundary "
+              f"{out[leg]['comp_by_boundary']}", file=sys.stderr, flush=True)
+    fails = []
+    if quantum == 0:
+        out["legs"] = _compare_legs(recs["cuda"], recs["reference"], log)
+        if not out["legs"]["divergence"]["explained"]:
+            fails.append("the legs part where no msc_score near-tie "
+                         "accounts for it")
+        del dbs["reference"]
+        torch.cuda.empty_cache()
+    else:
+        for a, b in zip(base["results"], recs["cuda"]["results"]):
+            _same_results(a, b)
+        if base["end"] != recs["cuda"]["end"]:
+            fails.append("the end state differs from three_tier's")
+        out["results_and_state_equal_three_tier"] = not fails
+    db, cu = dbs["cuda"], out["cuda"]
+    snap = db.obs_snapshot()
+    cbb = cu["comp_by_boundary"]
+    if min(cbb) <= 0:
+        fails.append(f"a boundary never compacted: {cbb}")
+    if snap["ev_jobs_b"].tolist() != cbb:
+        fails.append("per-boundary events differ from per-boundary "
+                     "commits")
+    used = [int((k >= 0).sum()) for k in db.estate.tier.keys]
+    cu["tier_rows"] = used
+    if any(u > n for u, n in zip(used, cfg.tier_slots)):
+        fails.append(f"a tier holds more rows than its slots: {used}")
+    if cu["orphaned_rows"]:
+        fails.append(f"{cu['orphaned_rows']} orphaned rows (F1): lower "
+                     "the preload")
+    path = ["clock_update", "msc_score"] + (
+        ["select_gather_rows", "scatter_rows"] if quantum else [])
+    for name in path:
+        if cu["launches"][name] <= 0:
+            fails.append(f"kernel {name} never launched")
+    if fails:
+        emit(out)
+        raise AssertionError(f"{out['phase']}: " + "; ".join(fails))
+    if device is None:
+        # one deep compaction on copies of the end state: a warm-up, one
+        # between CUDA events, one under the profiler
+        copies = [engine.dealias(db.estate.tier) for _ in range(3)]
+        deep = lambda: compaction.compact_boundary(copies.pop(), cfg, 1,
+                                                   cost=cost)
+        deep()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        deep()
+        b.record()
+        torch.cuda.synchronize()
+        prof = _profiled(deep, f"profile_deep_compaction_q{quantum}.txt")
+        out["deep_compaction"] = {
+            "event_ms": a.elapsed_time(b),
+            "device_ms": prof["device_busy_share"] * prof["window_s"] * 1e3,
+            "window_ms": prof["window_s"] * 1e3, "top_ms": prof["top_ms"]}
+    # read-back: sampled preloaded keys, then deleted ones are gone
+    pre = torch.from_numpy(np.random.default_rng(1).permutation(n_pre)
+                           .astype(np.int32)).to(db.device)
+    sample = pre[torch.randperm(n_pre, device=db.device, generator=torch
+                                .Generator(db.device).manual_seed(5))[:65536]]
+    _check_readback(db, sample, BATCH, "after the three-tier run")
+    gone = sample[:THREE_TIER_DELETES]
+    db.delete(gone)
+    _, found, _ = db.get(gone)
+    if bool(found.any()):
+        raise AssertionError("deleted keys still found")
+    _check_readback(db, sample[THREE_TIER_DELETES:], BATCH,
+                    "after the deletes")
+    out.update({"readback_keys": int(sample.numel()), "delete_ok": True,
+                "ok": True})
+    return out, recs["cuda"]
 
 
 # ------------------------------------------------------------ phase 5
@@ -2487,6 +2942,15 @@ def main() -> int:
     res["results_equal_main"] = _same_results(rec0, recq)
     del db0, dbq, rec0, recq
     emit(res)
+
+    # the paper's traffic through run_workload, then three tiers run to
+    # completion and at quantum DRAIN_Q (equal to run to completion)
+    emit(workloads_phase())
+    line, base = three_tier_phase()
+    emit(line)
+    line, _ = three_tier_phase(quantum=DRAIN_Q, base=base)
+    del base
+    emit(line)
 
     # the full-size state, run to completion and at quantum DRAIN_Q; the
     # two 9 GiB states are compared through per-leaf checksums

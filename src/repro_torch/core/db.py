@@ -2,8 +2,10 @@
 
 A client batch is one ``engine.engine_step``: the data op and the whole
 compaction control plane (rate limit, watermark loop, §5.3 read policy,
-and with ``compaction_quantum > 0`` one drained quantum of the in-flight
-migration).
+the deep boundaries' hysteresis when there are more than two tiers, and
+with ``compaction_quantum > 0`` one drained quantum of the in-flight
+migration).  ``run_workload`` drives the paper's traffic
+(``repro_torch.workloads``) through the same step.
 ``device=None`` means the card; ``backend`` defaults to "cuda" (the
 hand-written kernels).  The CPU tests pass ``device="cpu"``, where the
 "cuda" backend takes each kernel's plain PyTorch version.
@@ -22,7 +24,8 @@ class PrismDB:
     """Single-partition store: batched Put/Get/Delete/Scan + compaction.
 
     ``dispatches`` counts engine steps issued by this facade (one per
-    client batch, ``len(stream)`` per ``run_ops``); ``host_reads`` counts
+    client batch, ``len(stream)`` per ``run_ops``, ``n_batches`` per
+    ``run_workload``); ``host_reads`` counts
     the device-to-host reads their control flow took."""
 
     def __init__(self, cfg: TierConfig, seed: int = 0,
@@ -50,6 +53,20 @@ class PrismDB:
     @property
     def state(self) -> tiers.TierState:
         return self.estate.tier
+
+    @property
+    def pol(self) -> policy.PolicyState:
+        """A copy of the §5.3 policy state (the engine updates it in
+        place)."""
+        return engine.dealias(self.estate.pol)
+
+    @property
+    def promote(self) -> bool:
+        return self.ecfg.promote
+
+    @property
+    def precise(self) -> bool:
+        return self.ecfg.precise
 
     def _dispatch(self, op: OpBatch):
         before = engine.HOST_READS.n
@@ -92,6 +109,33 @@ class PrismDB:
         self.host_reads += engine.HOST_READS.n - before
         self.dispatches += int(ops.kind.numel())
         return res
+
+    def reset_workload(self, seed: int = 0) -> None:
+        """(Re)start the workload stream: generator state, its key and
+        the phase timeline."""
+        from repro_torch import workloads
+        self._gen = workloads.init_gen(self.cfg.key_space)
+        self._wrng = prng.PRNGKey(seed)
+        self._wt = 0
+
+    def run_workload(self, work, n_batches: int, batch: int):
+        """Run ``n_batches`` steps of a WorkloadSpec / PhaseSchedule, each
+        batch drawn on the host and run as one engine step.  Successive
+        calls continue the same stream and phase timeline
+        (``reset_workload`` restarts them); returns stacked StepStats.
+        ``dispatches`` grows by ``n_batches`` (it counts engine steps)."""
+        from repro_torch import workloads
+        if getattr(self, "_gen", None) is None:
+            self.reset_workload()
+        sched = workloads.as_schedule(work, n_batches)
+        before = engine.HOST_READS.n
+        self.estate, self._gen, self._wrng, stats = workloads.run_schedule(
+            self.estate, self._gen, self._wrng, sched, self.ecfg,
+            n_batches=n_batches, batch=batch, t0=self._wt)
+        self.host_reads += engine.HOST_READS.n - before
+        self._wt += n_batches
+        self.dispatches += n_batches
+        return stats
 
     @property
     def counters(self) -> dict:

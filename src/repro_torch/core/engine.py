@@ -1,8 +1,9 @@
 """The engine step: one client batch with its whole control plane.
 
-A port of the JAX package's ``core/engine.py`` for two tiers.
-``engine_step`` runs the maintenance loop (§4.2 rate limit, watermark
-hysteresis, §5.3 read policy), then, with ``compaction_quantum > 0``,
+A port of the JAX package's ``core/engine.py``.  ``engine_step`` runs
+the maintenance loop (§4.2 rate limit, watermark hysteresis, §5.3 read
+policy; with more than two tiers each deep boundary's hysteresis,
+``_deep_tick``), then, with ``compaction_quantum > 0``,
 one drained quantum of the in-flight migration (``drain_tick``), the
 masked put/get/delete pass, the scan lane and the obs record.  A
 ``mirror(payload, movement) -> payload`` replays every compaction's
@@ -12,7 +13,9 @@ row store) at commit.
 The JAX package keeps the maintenance loop on the device
 (``lax.while_loop``).  Here it is a Python loop bounded by
 ``max_rounds`` whose condition is read back with one host read per round
-(plus one per step for the loop's inputs); every such read is counted in
+(plus one per step for the loop's inputs); so are the deep boundaries'
+loops (one read at entry and one per deep merge), in the JAX package's
+order of loops and recursion.  Every such read is counted in
 ``HOST_READS``.  ``run_ops`` is a Python loop over a stacked op stream.
 
 State tensors are updated in place where that saves a pool-sized copy
@@ -101,12 +104,10 @@ class OpResult(NamedTuple):
 
 
 def check_supported(cfg: EngineConfig) -> None:
-    """Raise for configurations this slice of the port does not run."""
+    """Raise for configurations the port does not run."""
     backend_mod.check(cfg.backend)
-    if cfg.tier.n_tiers != 2:
-        raise NotImplementedError(
-            "n_tiers > 2 is not ported yet (ROADMAP Queue 1: N=3, "
-            "compact_boundary / _deep_tick)")
+    if cfg.tier.n_tiers < 2:
+        raise ValueError("a tier list needs at least two tiers")
 
 
 def dealias(tree):
@@ -205,6 +206,53 @@ def _occupancy(used: int, n: int) -> np.float32:
     return np.float32(used) / np.float32(n)
 
 
+def _deep_tick(state: EngineState, cfg: EngineConfig, boundary: int,
+               wm_gate: bool, need: int = 0) -> EngineState:
+    """Watermark hysteresis at one deep (run-to-run) boundary >= 1: while
+    tier ``boundary`` sits above the high watermark, migrate its best run
+    down into tier ``boundary + 1`` until it falls below the low one
+    (bounded by ``max_rounds``, and only while a run exists to migrate).
+    ``need`` also drains until the tier has that many free slots: free
+    slots are hard capacity, a merge landing in a full middle tier drops
+    rows, so the maintenance loop pre-drains each tier's worst-case
+    single-merge inflow.  Before each merge a receiving middle tier is
+    given the same headroom first (the recursion ends at the last
+    boundary).  Deep merges move run rows wholesale: no mirror, no
+    policy, no in-flight carry.  One host read at entry and one per
+    merge."""
+    if not wm_gate and need <= 0:
+        return state
+    n = state.tier.keys[boundary].shape[0]
+    high = np.float32(cfg.tier.high_watermark)
+    low = np.float32(cfg.tier.low_watermark)
+
+    def read(s):
+        k = s.tier.keys[boundary]
+        return _read((k >= 0).sum(dtype=torch.int32),
+                     s.tier.dir_active[boundary - 1].any())
+
+    used, can = read(state)
+    wm0 = wm_gate and bool(_occupancy(used, n) >= high)
+    rounds = 0
+    while rounds < cfg.max_rounds and can and (
+            (wm0 and not bool(_occupancy(used, n) < low))
+            or n - used < need):
+        if boundary + 1 < cfg.tier.n_tiers - 1:
+            state = _deep_tick(state, cfg, boundary + 1, True,
+                               need=2 * cfg.tier.run_size)
+        tier, stats = compaction.compact_boundary(
+            state.tier, cfg.tier, boundary, cost=cfg.obs.cost)
+        state = state._replace(tier=tier)
+        if cfg.obs.enabled:
+            state = state._replace(obs=obs_plane.record_compaction(
+                state.obs, cfg.obs, step=state.steps,
+                trigger=obs_plane.TRIG_WATERMARK, stats=stats,
+                boundary=boundary))
+        rounds += 1
+        used, can = read(state)
+    return state
+
+
 def maintenance(state: EngineState, cfg: EngineConfig, *, need=0,
                 wm_gate: bool = True, policy_enable: bool = True,
                 mirror: MirrorFn | None = None,
@@ -213,7 +261,10 @@ def maintenance(state: EngineState, cfg: EngineConfig, *, need=0,
     compact while usable fast slots are below ``need`` (§4.2 rate
     limit), while the watermark trigger armed at entry holds the fast
     tier above the low watermark, and for the §5.3 policy budget.
-    One host read at entry and one per compaction round."""
+    One host read at entry and one per compaction round.  With more than
+    two tiers, each round first pre-drains the deep boundaries, deepest
+    first, to a merge's worth of free slots, and after the loop the deep
+    boundaries cascade from the top down."""
     t = state.tier
     total = t.ctr.gets + t.ctr.puts + t.ctr.scans
     scalars = [tiers.free_fast_slots(t), state.virtual_extra]
@@ -242,10 +293,15 @@ def maintenance(state: EngineState, cfg: EngineConfig, *, need=0,
             break
         trig = (obs_plane.TRIG_RATE_LIMIT if rate else
                 obs_plane.TRIG_WATERMARK if wm else obs_plane.TRIG_POLICY)
+        for b in range(cfg.tier.n_tiers - 2, 0, -1):
+            state = _deep_tick(state, cfg, b, True,
+                               need=2 * cfg.tier.run_size)
         state = _compact1(state, cfg, mirror, force_pin_keys, trig)
         rounds += 1
         free, ve = _read(tiers.free_fast_slots(state.tier),
                          state.virtual_extra)
+    for b in range(1, cfg.tier.n_tiers - 1):
+        state = _deep_tick(state, cfg, b, wm_gate)
     return state
 
 

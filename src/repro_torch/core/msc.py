@@ -4,7 +4,8 @@
     cost = F * (2 - o) / (1 - p) + 1
 
 ``approx_score`` (bucket statistics) is the main-path scorer; with
-backend "cuda" it runs as the ``msc_score`` kernel.  ``precise_score``
+backend "cuda" it runs as the ``msc_score`` kernel.  Deep boundaries
+(more than two tiers) pick a whole run with ``select_boundary_run``.  ``precise_score``
 walks the objects of a range.  Candidate ranges come from power-of-k
 sampling with ``jax.random``'s bits (``core.prng``).  The JAX package's
 ``vmap`` over candidates is a batch dimension here.
@@ -18,7 +19,7 @@ import torch
 from repro_torch.core import mapper, prng, tracker
 from repro_torch.core.tiers import TierConfig, TierState, bucket_of
 from repro_torch.core.utils import (PADKEY, count_into, fdiv, searchsorted,
-                                    segment_in_range, sorted_lookup)
+                                    segment_in_range, sorted_lookup, take)
 
 
 class Candidate(NamedTuple):
@@ -209,3 +210,45 @@ def select_range(state: TierState, cfg: TierConfig, key: torch.Tensor,
         scores = approx_score(state, cfg, cand.lo, cand.hi, cand.t_f, bhist,
                               probs)
     return cand, scores, torch.argmax(scores)
+
+
+# ------------------------------------------------- deep-boundary selection
+
+def select_boundary_run(state: TierState, cfg: TierConfig, boundary: int,
+                        cost=None) -> tuple:
+    """Pick the tier-``boundary`` run to migrate down across the
+    ``boundary`` -> ``boundary + 1`` boundary (``boundary >= 1``).
+
+    Below the slab tier there is no popularity signal, so the score is
+    MSC's benefit/cost core priced with this boundary's coefficients:
+
+        score_j = rows_freed_j / (io_us_j + 1)
+        io_us_j = t_u * seq_read(up) + t_l * seq_read(lo)
+                  + (t_u + t_l) * seq_write(lo)
+
+    where ``t_l`` sums the counts of every lower run overlapping run j's
+    range.  Returns ``(rid, lo, hi, score, overlap_mask)`` as 0-d device
+    tensors (no host read) and a bool[max_runs] over the lower tier's
+    directory."""
+    from repro_torch.obs.cost import CostModel
+    cost = cost if cost is not None else CostModel()
+    f32 = torch.float32
+    du, dl = boundary - 1, boundary
+    up_lo, up_hi = state.dir_lo[du], state.dir_hi[du]
+    up_cnt, up_act = state.dir_count[du], state.dir_active[du]
+    lo_lo, lo_hi = state.dir_lo[dl], state.dir_hi[dl]
+    lo_cnt, lo_act = state.dir_count[dl], state.dir_active[dl]
+    # [U, L] overlap of upper run u's range with lower run l's range
+    ov = (lo_act[None, :] & (lo_lo[None, :] < up_hi[:, None])
+          & (lo_hi[None, :] > up_lo[:, None]))
+    t_l = torch.where(ov, lo_cnt[None, :], 0).sum(1, dtype=torch.int32).to(
+        f32)
+    t_u = up_cnt.to(f32)
+    cu, cl = cost.tier(boundary), cost.tier(boundary + 1)
+    io = (t_u * cu.seq_read_us_per_obj + t_l * cl.seq_read_us_per_obj
+          + (t_u + t_l) * cl.seq_write_us_per_obj)
+    score = torch.where(up_act & (up_cnt > 0), t_u / (io + 1.0),
+                        torch.full_like(io, float("-inf")))
+    rid = torch.argmax(score)
+    return (rid, take(up_lo, rid), take(up_hi, rid), take(score, rid),
+            take(ov, rid))

@@ -1,12 +1,12 @@
 """TieredStore: PrismDB's tiered data layout as a tier list, in PyTorch.
 
 Tier 0 is a fixed-slot unsorted slab pool with a sorted (key -> slot)
-index; tier 1 is a slotted pool of immutable key-sorted runs with a run
-directory and one Bloom filter per run.  The state mirrors the JAX
-package's ``TierState`` leaf for leaf (``core/engine.state_from_numpy``
-carries one across).  This slice runs the two-tier configuration only;
-``TierConfig`` keeps every field, and ``n_tiers > 2`` raises at engine
-construction.
+index; tiers 1..T-1 are slotted pools of immutable key-sorted runs, each
+with a run directory and one Bloom filter per run.  The classic PrismDB
+pair is T = 2; with T > 2 the middle tiers carry tombstone rows
+(``tombs``) that shadow deeper copies of a deleted key.  The state
+mirrors the JAX package's ``TierState`` leaf for leaf
+(``core/engine.state_from_numpy`` carries one across).
 
 Pool-sized tensors are updated IN PLACE where the JAX package built a
 new array (``apply_point_ops`` writes the tier-0 pool, version and
@@ -162,9 +162,14 @@ def free_fast_slots(state: TierState) -> torch.Tensor:
     return (state.keys[0] < 0).sum(dtype=torch.int32)
 
 
+def tier_occupancy(state: TierState, t: int) -> torch.Tensor:
+    """float32 share of tier ``t``'s slots in use."""
+    used = (state.keys[t] >= 0).sum(dtype=torch.int32)
+    return fdiv(used.to(torch.float32), state.keys[t].shape[0])
+
+
 def fast_occupancy(state: TierState) -> torch.Tensor:
-    used = (state.keys[0] >= 0).sum(dtype=torch.int32)
-    return fdiv(used.to(torch.float32), state.keys[0].shape[0])
+    return tier_occupancy(state, 0)
 
 
 def run_of_keys(state: TierState, keys: torch.Tensor,
@@ -195,20 +200,26 @@ def apply_point_ops(state: TierState, cfg: TierConfig, keys: torch.Tensor,
                     backend: str = "reference"
                     ) -> tuple[TierState, torch.Tensor, torch.Tensor,
                                torch.Tensor]:
-    """Put/get/delete as one masked pass (JAX ``tiers.apply_point_ops``,
-    two tiers).  The kind flags are Python bools (at most one true): the
-    lanes of the other kinds are masked off exactly as in the JAX
-    package, and work whose every lane is masked off (the get lane of a
-    put, the pool writes of a get) is skipped -- it would write nothing.
+    """Put/get/delete as one masked pass (JAX ``tiers.apply_point_ops``).
+    The kind flags are Python bools (at most one true): the lanes of the
+    other kinds are masked off exactly as in the JAX package, and work
+    whose every lane is masked off (the get lane of a put, the pool
+    writes of a get, the deeper tiers' Bloom probes of a put) is skipped
+    -- it would write nothing.
+
+    get walks the tiers downward: tier-0 index, then tier by tier a Bloom
+    probe and a run lookup, every Bloom-positive probe charged a read on
+    that tier; a tombstone row of a middle tier is a definitive miss, as
+    a tier-0 tombstone hides the whole lower hierarchy.  delete frees the
+    tier-0 copy, and leaves a tier-0 tombstone where any lower tier's
+    Bloom filter says the key may live.
 
     Returns ``(state', vals, found, source)``; the get-lane outputs are
-    zeros / False / -1 unless ``is_get``.  Writes the tier-0 pool of
-    ``state`` in place."""
-    if state.n_tiers != 2:
-        raise NotImplementedError("n_tiers > 2 is not ported yet (ROADMAP "
-                                  "Queue 1: N=3 compact_boundary)")
+    zeros / False / -1 unless ``is_get``, ``source`` the serving tier.
+    Writes the tier-0 pool of ``state`` in place."""
     dev = keys.device
     keys = keys.to(torch.int32)
+    n_tiers = state.n_tiers
     nf = state.keys[0].shape[0]
     keep = dedupe_keep_last(keys, valid)
 
@@ -218,33 +229,60 @@ def apply_point_ops(state: TierState, cfg: TierConfig, keys: torch.Tensor,
     fslot = fslot.to(torch.int64)
     fc = fslot.clamp(min=0)
     tomb = state.fast_ver[fc] < 0
-    rid = run_of_keys(state, keys, tier=1)
-    maybe0 = bloom.query_per_key(state.dir_blooms[0], rid, keys)
+    # per-lower-tier Bloom answers ("key may live in tier t"); a put needs
+    # tier 1's only (the bucket overlap estimate)
+    maybe_raw = []
+    for t in range(1, n_tiers if (is_get or is_del) else 2):
+        rid = run_of_keys(state, keys, tier=t)
+        maybe_raw.append(bloom.query_per_key(state.dir_blooms[t - 1], rid,
+                                             keys))
+    maybe0 = maybe_raw[0]
+    maybe_any = maybe_raw[0]
+    for m in maybe_raw[1:]:
+        maybe_any = maybe_any | m
     b = bucket_of(cfg, keys)
 
     # ---- get lane (reads the pre-op pools; kinds are exclusive) ---------
     g = _on(valid, is_get)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    hit_list = [torch.zeros_like(valid)] * (n_tiers - 1)
+    probe_list = list(hit_list)
+    probe_cnt = fp_cnt = zero
     if is_get:
         fhit = flook & g & ~tomb
-        searching = g & ~flook
-        maybe_t = maybe0 & searching
-        sslot, sfound = sorted_lookup(state.idx_keys[1], state.idx_slots[1],
-                                      keys)
-        hit_t = sfound & maybe_t
-        probe_cnt = _cnt(searching)
-        fp_cnt = _cnt(maybe_t & ~sfound)
-        tier_val = state.vals[1][sslot.to(torch.int64).clamp(min=0)]
+        searching = g & ~flook           # a tombstone hides lower copies
+        tier_vals = []
+        for t in range(1, n_tiers):
+            maybe_t = maybe_raw[t - 1] & searching
+            sslot, sfound = sorted_lookup(state.idx_keys[t],
+                                          state.idx_slots[t], keys)
+            sc = sslot.to(torch.int64).clamp(min=0)
+            hit_t = sfound & maybe_t
+            if state.tombs:
+                ltomb = state.tombs[t - 1][sc]
+                tombhit_t = hit_t & ltomb
+                hit_t = hit_t & ~ltomb
+            else:
+                tombhit_t = torch.zeros_like(hit_t)
+            probe_cnt = probe_cnt + _cnt(searching)
+            fp_cnt = fp_cnt + _cnt(maybe_t & ~sfound)
+            hit_list[t - 1], probe_list[t - 1] = hit_t, maybe_t
+            tier_vals.append(state.vals[t][sc])
+            searching = searching & ~(hit_t | tombhit_t)
         fvals = state.vals[0][fc]
-        out_vals = torch.where(hit_t[:, None], tier_val,
-                               torch.zeros_like(fvals))
-        source = torch.where(hit_t, 1, -1).to(torch.int32)
+        out_vals = torch.zeros_like(fvals)
+        source = torch.full(keys.shape, -1, dtype=torch.int32, device=dev)
+        shit_any = torch.zeros_like(fhit)
+        for t in range(n_tiers - 1, 0, -1):
+            h = hit_list[t - 1]
+            out_vals = torch.where(h[:, None], tier_vals[t - 1], out_vals)
+            source = torch.where(h, t, source).to(torch.int32)
+            shit_any = shit_any | h
         out_vals = torch.where(fhit[:, None], fvals, out_vals)
         source = torch.where(fhit, 0, source).to(torch.int32)
-        found = fhit | hit_t
+        found = fhit | shit_any
     else:
-        fhit = maybe_t = hit_t = found = torch.zeros_like(valid)
-        probe_cnt = fp_cnt = zero
+        fhit = shit_any = found = torch.zeros_like(valid)
         out_vals = torch.zeros((keys.shape[0], state.vals[0].shape[1]),
                                dtype=state.vals[0].dtype, device=dev)
         source = torch.full(keys.shape, -1, dtype=torch.int32, device=dev)
@@ -260,7 +298,7 @@ def apply_point_ops(state: TierState, cfg: TierConfig, keys: torch.Tensor,
         upd = flook & putk
         fresh_put = putk & ~flook
         dfound = flook & delk
-        maybe_del = maybe0 & delk
+        maybe_del = maybe_any & delk
         free_d = dfound & ~maybe_del
         tomb_old = dfound & maybe_del
         tomb_fresh = maybe_del & ~dfound
@@ -301,7 +339,7 @@ def apply_point_ops(state: TierState, cfg: TierConfig, keys: torch.Tensor,
     # ---- tracker --------------------------------------------------------
     trk = state.tracker
     if is_put or is_get:
-        trk_locs = hit_t.to(torch.int8)
+        trk_locs = shit_any.to(torch.int8)
         trk_mask = putk | (g & found)
         if backend == "reference":
             trk = tracker.access_batched(trk, keys, trk_locs, trk_mask)
@@ -316,10 +354,12 @@ def apply_point_ops(state: TierState, cfg: TierConfig, keys: torch.Tensor,
     ctr = ctr._replace(
         puts=ctr.puts + n_put,
         gets=ctr.gets + _cnt(g),
-        hits=ctr.hits + torch.stack([_cnt(fhit), _cnt(hit_t)]),
+        hits=ctr.hits + torch.stack([_cnt(fhit)]
+                                    + [_cnt(h) for h in hit_list]),
         misses=ctr.misses + _cnt(g & ~found),
-        reads=ctr.reads + torch.stack([_cnt(fhit), _cnt(maybe_t)]),
-        writes=ctr.writes + torch.stack([n_put, zero]),
+        reads=ctr.reads + torch.stack([_cnt(fhit)]
+                                      + [_cnt(m) for m in probe_list]),
+        writes=ctr.writes + torch.stack([n_put] + [zero] * (n_tiers - 1)),
         bloom_probes=ctr.bloom_probes + probe_cnt,
         bloom_fps=ctr.bloom_fps + fp_cnt)
     state = state._replace(
@@ -350,12 +390,23 @@ def get_batch(state: TierState, cfg: TierConfig, keys: torch.Tensor,
               ) -> tuple[TierState, torch.Tensor, torch.Tensor,
                          torch.Tensor]:
     """Returns (state', vals, found, source); source is the serving tier
-    (0 = fast slab, 1 = slow runs), -1 a miss.  ``backend`` as in
+    (0 = fast slab), -1 a miss.  ``backend`` as in
     ``put_batch``."""
     vals = torch.zeros((keys.shape[0], state.vals[0].shape[1]),
                        dtype=state.vals[0].dtype, device=keys.device)
     return apply_point_ops(state, cfg, keys, vals, valid, is_put=False,
                            is_get=True, is_del=False, backend=backend)
+
+
+def delete_batch(state: TierState, cfg: TierConfig, keys: torch.Tensor,
+                 valid: torch.Tensor) -> TierState:
+    """Client deletes (paper §6): the delete-only form of
+    ``apply_point_ops``."""
+    vals = torch.zeros((keys.shape[0], state.vals[0].shape[1]),
+                       dtype=state.vals[0].dtype, device=keys.device)
+    state, _, _, _ = apply_point_ops(state, cfg, keys, vals, valid,
+                                     is_put=False, is_get=False, is_del=True)
+    return state
 
 
 def consolidate_indexes(state: TierState) -> TierState:
@@ -382,7 +433,14 @@ def _scan_windows(state: TierState, lo: torch.Tensor, take: int) -> tuple:
         if t == 0:
             dead = state.fast_ver[isl[pos].to(torch.int64).clamp(min=0)] < 0
         else:
-            dead = torch.zeros(k.shape, dtype=torch.bool, device=k.device)
+            if state.tombs:
+                dead = state.tombs[t - 1][
+                    isl[pos].to(torch.int64).clamp(min=0)]
+            else:
+                dead = torch.zeros(k.shape, dtype=torch.bool,
+                                   device=k.device)
+            # keys shadowed by any upper-tier index entry (tombstones
+            # included) are dead
             for u in range(t):
                 _, shadowed = sorted_lookup(state.idx_keys[u],
                                             state.idx_slots[u],

@@ -1,7 +1,7 @@
 """Row-mover wrappers with backend dispatch (kernels B3 select_gather_rows,
 B4 scatter_rows and B5 gather_rows, ``csrc/tier_compact.cu``), and the
-Movement replay built on them (the JAX package's
-``kernels/tier_compact/ops.py``).
+Movement replay built on them, at a tier pair or at one boundary of a
+tier list (the JAX package's ``kernels/tier_compact/ops.py``).
 
 Each launch wrapper validates its tensors, launches its kernel on the
 current stream and adds one to its ``LAUNCHES`` key; ``movers`` picks the
@@ -174,3 +174,22 @@ def apply_movement_pools(fast: torch.Tensor, slow: torch.Tensor, mv, *,
     frows, srows = apply_movement_rows(frows.contiguous(), srows.contiguous(),
                                        mv, backend=backend)
     return from_rows(frows, fshape), from_rows(srows, sshape)
+
+
+def apply_movement_boundary(pools, mv, boundary: int = 0, *,
+                            backend: str = "cuda") -> list:
+    """Replay a Movement at one boundary of an N-tier pool list: ``pools``
+    holds flat per-tier row pools [P_t, W] (hottest first), and the pair
+    movers run on ``(pools[boundary], pools[boundary + 1])``, in place.
+    The Movement's ``m_src_tier`` holds tier indices as ``compact_once``
+    and ``compact_boundary`` emit them (the boundary's upper tier ==
+    ``boundary``); a row comes from the upper pool exactly where its tier
+    is ``boundary``.  Returns the list with those two entries replaced;
+    at ``boundary=0`` on a two-entry list this is
+    ``apply_movement_rows``."""
+    pools = list(pools)
+    rel = mv._replace(m_src_tier=(mv.m_src_tier != boundary).to(
+        mv.m_src_tier.dtype))
+    pools[boundary], pools[boundary + 1] = apply_movement_rows(
+        pools[boundary], pools[boundary + 1], rel, backend=backend)
+    return pools

@@ -39,6 +39,15 @@ class CostModel(NamedTuple):
                         self.slow_seq_read_us_per_obj,
                         self.slow_seq_write_us_per_obj)
 
+    def resolve(self, n_tiers: int) -> tuple:
+        """``n_tiers``-length TierCost tuple (legacy fields expanded);
+        raises when an explicit vector has another length."""
+        if self.tiers and len(self.tiers) != n_tiers:
+            raise ValueError(
+                f"CostModel.tiers has {len(self.tiers)} entries, "
+                f"engine has {n_tiers} tiers")
+        return tuple(self.tier(i) for i in range(n_tiers))
+
 
 def step_io_us(delta, cost: CostModel,
                fast_write_amp: float = 1.0) -> torch.Tensor:
@@ -70,6 +79,19 @@ def compaction_io_us(stats, cost: CostModel, fast_write_amp: float = 1.0,
             + stats.n_run_written.to(f32) * lo.seq_write_us_per_obj
             + stats.n_demoted.to(f32) * up.read_us
             + stats.n_promoted.to(f32) * (up.write_us * fast_write_amp))
+
+
+def boundary_io_us(n_up_read: torch.Tensor, n_lo_read: torch.Tensor,
+                   n_written: torch.Tensor, cost: CostModel,
+                   boundary: int) -> torch.Tensor:
+    """Modeled I/O microseconds (f32) of a deep (run-to-run) compaction at
+    ``boundary``: both source windows are sequential run reads priced per
+    tier, the merged output a sequential write into the lower tier."""
+    f32 = torch.float32
+    up, lo = cost.tier(boundary), cost.tier(boundary + 1)
+    return (n_up_read.to(f32) * up.seq_read_us_per_obj
+            + n_lo_read.to(f32) * lo.seq_read_us_per_obj
+            + n_written.to(f32) * lo.seq_write_us_per_obj)
 
 
 def drain_io_us(run_read: torch.Tensor, run_written: torch.Tensor,

@@ -355,17 +355,12 @@ def test_every_init_defaults_to_the_card(name):
         _inits()[name]()
 
 
-def test_unported_configs_raise():
+def test_unsupported_backend_raises():
     from repro_torch.core.db import PrismDB
     from repro_torch.core.tiers import TierConfig
     cfg = TierConfig(key_space=1 << 10, fast_slots=64, slow_slots=256,
                      value_width=1, max_runs=8, run_size=32,
                      bloom_bits_per_run=256, tracker_slots=128, n_buckets=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PrismDB(cfg._replace(tier_slots=(64, 128, 256)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PrismDB(cfg._replace(tier_slots=(64, 128, 256)),
-                compaction_quantum=4, device="cpu")
     with pytest.raises(ValueError):
         PrismDB(cfg, backend="pallas", device="cpu")
     # the quantized engine and payload mirrors run

@@ -1177,3 +1177,90 @@ def test_hybrid_forward_on_card():
                               torch.zeros(2, dtype=torch.int32,
                                           device="cuda"))
     assert float((lg - got[:, 0]).abs().max()) <= 1e-4
+
+
+# ----------------------------------------------------- N-tier storage plane
+
+_CFG3_KW = dict(key_space=1 << 11, fast_slots=128, slow_slots=1 << 10,
+                value_width=2, max_runs=32, run_size=64,
+                bloom_bits_per_run=1 << 12, tracker_slots=1 << 9,
+                n_buckets=32, pin_threshold=0.1,
+                tier_slots=(128, 256, 1 << 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantum", [0, 3])
+def test_three_tier_workload_on_card(quantum):
+    """tests/test_tier_list.py's 3-tier config through ``run_workload`` on
+    the card, backend "cuda" (B1, B2; B3 and B4 at quantum 3), against
+    backend "reference" on the CPU: StepStats, counters and every tier
+    leaf equal, both boundaries compacted."""
+    _needs_card()
+    from repro_torch import workloads as W
+    from repro_torch.core import engine
+    from repro_torch.core.db import PrismDB
+    from repro_torch.core.tiers import TierConfig
+    cfg = TierConfig(**_CFG3_KW)
+    rng = np.random.default_rng(0)
+    pre = [rng.integers(0, cfg.key_space, 100).astype(np.int32)
+           for _ in range(12)]
+    runs = {}
+    kernels.reset_launches()
+    for backend, device in (("cuda", "cuda"), ("reference", "cpu")):
+        db = PrismDB(cfg, seed=3, backend=backend, device=device,
+                     compaction_quantum=quantum)
+        for k in pre:
+            db.put(k)
+        db.reset_workload(seed=1)
+        runs[backend] = (db, db.run_workload(W.ycsb("A"), 16, 64))
+    (dc, sc), (dr, sr) = runs["cuda"], runs["reference"]
+    for x, y in zip(sc, sr):
+        assert torch.equal(x.cpu(), y)
+    assert dc.counters == dr.counters
+    assert min(dc.counters["comp_by_boundary"]) > 0
+    a = engine.state_to_numpy(dc.estate.tier)
+    b = engine.state_to_numpy(dr.estate.tier)
+    from torch_parity import leaves
+    for (p, x), (_, y) in zip(leaves(a), leaves(b)):
+        assert_bit_equal(x, y, p)
+    path = ["clock_update", "msc_score"] + (
+        ["select_gather_rows", "scatter_rows"] if quantum else [])
+    for name in path:
+        assert kernels.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.cuda
+def test_apply_movement_boundary_on_card():
+    """A deep merge's Movement (``compact_boundary`` at boundary 1) and a
+    slab merge's (``compact_once``) replayed on per-tier row pools on the
+    card through B3, B4 and B5, bit-equal to the plain movers on the
+    same pools."""
+    _needs_card()
+    from repro_torch.core import compaction, engine, prng
+    from repro_torch.core.db import PrismDB
+    from repro_torch.core.tiers import TierConfig
+    from repro_torch.kernels.tier_compact.ops import apply_movement_boundary
+    cfg = TierConfig(**_CFG3_KW)
+    db = PrismDB(cfg, seed=3, device="cuda")
+    rng = np.random.default_rng(1)
+    for _ in range(12):
+        db.put(rng.integers(0, cfg.key_space, 100).astype(np.int32))
+    mvs = [(1, compaction.compact_boundary(engine.dealias(db.estate.tier),
+                                           cfg, 1, with_movement=True)[2]),
+           (0, compaction.compact_once(engine.dealias(db.estate.tier), cfg,
+                                       prng.PRNGKey(5),
+                                       with_movement=True)[2])]
+    for b, mv in mvs:
+        assert int(mv.m_valid.sum()) > 0
+        pools = [t(rng.standard_normal((n, 5)).astype(np.float32))
+                 for n in cfg.tier_sizes]
+        want = apply_movement_boundary([p.clone() for p in pools], mv._replace(
+            **{f: getattr(mv, f).cpu() for f in mv._fields}), b,
+            backend="reference")
+        n0 = kernels.LAUNCHES["scatter_rows"]
+        got = apply_movement_boundary([p.cuda() for p in pools], mv, b,
+                                      backend="cuda")
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["scatter_rows"] == n0 + 2
+        for x, y in zip(want, got):
+            assert torch.equal(x, y.cpu())
