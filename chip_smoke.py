@@ -96,6 +96,21 @@ Phases, each printed as one JSON line:
                  one deep compaction's device time; three_tier_quantum,
                  the "cuda" leg at compaction_quantum=DRAIN_Q, whose
                  per-op results and end state equal three_tier's
+  4d. partitioned -- PartitionedDB(paper_tier_config(SCALE), PART_P): main's
+                 preload routed, PART_SEGMENT routed batches alternating
+                 put and get, then one tenant a partition (PART_TENANTS)
+                 through run_workload, on "cuda" and "reference" (per-
+                 partition counters, drops, tier states and obs
+                 histograms equal, or parted only at an msc_score
+                 near-tie) and the routed part at quantum DRAIN_Q (B3/B4
+                 launch, tier state equal); partition 0 equals a lone
+                 engine fed its rows; routed writes read back; BATCH
+                 identical keys drop all but the pad; the merged
+                 histogram mass equals the routed valid lanes plus the
+                 tenants' ops; the snapshot to chiprun_out/
+                 partitioned.jsonl; a maybe_trace window holding B1 and
+                 B2 kernel events; ops/s, p50/p90 and host reads a
+                 client batch and a tenant step
   5. embed    -- the embedding row store at gemma3-1b's width through
                  engine_init + prepare_step, backend "cuda", "cuda" with
                  the plain movers, and "reference": every lookup equal to
@@ -1553,6 +1568,383 @@ def three_tier_phase(quantum: int = 0, base=None, device=None):
     return out, recs["cuda"]
 
 
+# ------------------------------------------------------------ phase 4d
+
+# The partitioned store: PART_P shared-nothing partitions of
+# paper_tier_config(SCALE), each provisioned for the whole key space as
+# the JAX package's routed path provisions them.  main's preload goes
+# through the router (pad 2 * BATCH / PART_P a partition), then
+# PART_SEGMENT routed batches alternate put and get, then one tenant a
+# partition runs PART_TENANT_BATCHES batches over its own partition.
+PART_P = 4
+PART_SEGMENT = 32
+PART_TENANTS = (("ycsb", "A"), ("ycsb", "B"), ("ycsb", "C"),
+                ("twitter", "cluster39"))
+PART_TENANT_BATCHES = 16
+PART_SEED = 300
+PART_TRACE_PUTS = 2            # routed puts in the maybe_trace window
+PART_TRACE_NAMES = {"clock_update": "clock_apply",
+                    "msc_score": "msc_score_kernel"}
+
+
+@contextlib.contextmanager
+def _per_call(module, name: str, calls: list):
+    """While open, every call of ``module.name`` synchronises after
+    itself and appends (wall seconds, host reads) to ``calls``."""
+    import torch
+    from repro_torch.core import engine
+    orig = getattr(module, name)
+
+    def run(*a, **kw):
+        t0, h0 = time.perf_counter(), engine.HOST_READS.n
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, engine.HOST_READS.n - h0))
+        return out
+
+    setattr(module, name, run)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def _partitioned_inputs(cfg):
+    """(preload keys, routed segment keys [PART_SEGMENT, BATCH], tenant
+    workloads) of the partitioned phase, on the host."""
+    import numpy as np
+    import torch
+    n_pre = cfg.key_space // 2
+    pre = torch.from_numpy(np.random.default_rng(1).permutation(n_pre)
+                           .astype(np.int32))
+    seg = torch.from_numpy(np.random.default_rng(PART_SEED).integers(
+        0, cfg.key_space, (PART_SEGMENT, BATCH)).astype(np.int32))
+    works = [_work(k, n, cfg.key_space, PART_TENANT_BATCHES)
+             for k, n in PART_TENANTS]
+    return pre, seg, works
+
+
+def _partitioned_leg(cfg, backend: str, quantum: int = 0,
+                     tenants: bool = True, log=None, device=None):
+    """One leg of the partitioned phase: ``PartitionedDB(cfg, PART_P)`` on
+    ``backend``, the routed preload, the routed segment and (with
+    ``tenants``) the multi-tenant run.  Returns (line, db, records) with
+    the records' per-partition tier checksums and cumulative compactions
+    after each part (for ``_explain_divergence``)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch import workloads as W
+    from repro_torch.core import engine
+    from repro_torch.core.db import PartitionedDB
+    torch.cuda.reset_peak_memory_stats()
+    db = PartitionedDB(cfg, PART_P, seed=0, backend=backend,
+                       compaction_quantum=quantum, device=device)
+    kernels.reset_launches()
+    engine.HOST_READS.n = 0
+    pre, seg, works = _partitioned_inputs(cfg)
+    pre, seg = pre.to(db.device), seg.to(db.device)
+    rec = {"digests": [], "comps": [], "sent": 0}
+    out = {"backend": backend, "quantum": quantum}
+
+    def mark():
+        rec["digests"].append([_digest(e.tier) for e in db.estates])
+        rec["comps"].append(sum(db.counters["compactions"]))
+
+    scoring = _score_log(log) if log is not None else \
+        contextlib.nullcontext()
+    with scoring:
+        t0 = time.time()
+        for i in range(0, pre.numel(), BATCH):
+            db.put(pre[i:i + BATCH])
+        torch.cuda.synchronize()
+        rec["sent"] += pre.numel()
+        out.update({"preload_s": time.time() - t0,
+                    "preload_batches": db.dispatches,
+                    "preload_compactions": db.counters["compactions"],
+                    "preload_dropped": db.dropped})
+        mark()
+        walls, h0, d0 = [], db.host_reads, db.dispatches
+        c0 = sum(db.counters["compactions"])
+        t0 = time.time()
+        for j in range(PART_SEGMENT):
+            t1 = time.perf_counter()
+            (db.put if j % 2 == 0 else db.get)(seg[j])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        dt = time.time() - t0
+        rec["sent"] += seg.numel()
+        w = np.asarray(walls) * 1e3
+        out["routed"] = {
+            "batches": PART_SEGMENT, "ops_per_s": seg.numel() / dt,
+            "batch_ms_p50": float(np.percentile(w, 50)),
+            "batch_ms_p90": float(np.percentile(w, 90)),
+            "host_reads_per_batch":
+                (db.host_reads - h0) / (db.dispatches - d0),
+            "compactions": sum(db.counters["compactions"]) - c0}
+        mark()
+        if tenants:
+            db.reset_workload(seed=PART_SEED)
+            c0 = db.counters["compactions"]
+            walls, calls = [], []
+            with _stepped(walls, []), \
+                    _per_call(W.runner, "run_schedule", calls):
+                st = db.run_workload(works, PART_TENANT_BATCHES, BATCH)
+            c1, t = db.counters["compactions"], PART_TENANT_BATCHES
+            out["tenants"] = {
+                f"{k}-{n}": {
+                    "ops_per_s": t * BATCH / calls[i][0],
+                    "step_ms_p50": float(np.percentile(
+                        walls[i * t:(i + 1) * t], 50) * 1e3),
+                    "step_ms_p90": float(np.percentile(
+                        walls[i * t:(i + 1) * t], 90) * 1e3),
+                    "host_reads_per_step": calls[i][1] / t,
+                    "compactions": c1[i] - c0[i],
+                    "kinds": torch.bincount(st.kind[i].long(),
+                                            minlength=4).tolist()}
+                for i, (k, n) in enumerate(PART_TENANTS)}
+            rec["tenant_ops"] = PART_P * t * BATCH
+            mark()
+    c = db.counters
+    out.update({"batches": db.dispatches,
+                "host_reads": db.host_reads,
+                "compactions": c["compactions"], "dropped": db.dropped,
+                "max_memory_allocated_gib":
+                    torch.cuda.max_memory_allocated() / 2**30,
+                "launches": dict(kernels.LAUNCHES)})
+    return out, db, rec
+
+
+def _partitioned_readback(db, keys) -> dict:
+    """Routed gets of ``keys``: every lane the router placed must be found
+    with value == key, but for keys in rows that a full run directory
+    orphaned (F1, counted apart)."""
+    import torch
+    from repro_torch.core.db import route_batch
+    lost, unrouted = [], 0
+    for i in range(0, keys.numel(), BATCH):
+        k = keys[i:i + BATCH]
+        routed, valid, _ = route_batch(k, db.p, max(2 * k.numel() // db.p,
+                                                    8))
+        vals, found, _ = db.get(k)
+        ok = found & (vals == routed[..., None].to(torch.float32)).all(-1)
+        lost.append(routed[valid & ~ok])
+        unrouted += k.numel() - int(valid.sum())
+    lost = torch.cat(lost)
+    orphans = torch.cat([
+        k[(r >= db.cfg.max_runs) & (k >= 0)] for e in db.estates
+        for r, k in zip(e.tier.runs, e.tier.keys[1:])])
+    in_f1 = int(torch.isin(lost, orphans).sum()) if lost.numel() else 0
+    if lost.numel() > in_f1:
+        raise AssertionError(
+            f"partitioned read-back: {lost.numel()} of {keys.numel()} "
+            f"routed writes not found with value == key, {in_f1} of them "
+            "in orphaned rows (F1)")
+    return {"keys": int(keys.numel()), "lost_to_f1": in_f1,
+            "orphaned_rows": int(orphans.numel()),
+            "get_lanes_over_the_pad": unrouted}
+
+
+def _lone_partition0(db, cfg, pre, seg, work0) -> int:
+    """Shared nothing: a lone engine from partition 0's split key, fed
+    partition 0's routed rows and valid masks of the preload and the
+    routed segment, then tenant 0's stream drawn again on the host, must
+    equal ``db``'s partition 0 leaf for leaf.  Returns the leaves
+    compared."""
+    import torch
+    from repro_torch import workloads as W
+    from repro_torch.core import engine, prng
+    from repro_torch.core.db import route_batch
+    est = engine.init(db.ecfg, prng.split(prng.PRNGKey(0), db.p)[0],
+                      device=db.device)
+    batches = [(engine.PUT, pre[i:i + BATCH])
+               for i in range(0, pre.numel(), BATCH)]
+    batches += [(engine.PUT if j % 2 == 0 else engine.GET, seg[j])
+                for j in range(PART_SEGMENT)]
+    for kind, k in batches:
+        k = k.to(db.device)
+        routed, valid, _ = route_batch(k, db.p, max(2 * k.numel() // db.p,
+                                                    8))
+        est, _ = engine.engine_step(est, engine.make_op(
+            kind, routed[0], valid=valid[0], value_width=cfg.value_width,
+            device=db.device), db.ecfg)
+    ops, _ = W.sample_ops(prng.split(prng.PRNGKey(PART_SEED), db.p)[0],
+                          work0, PART_TENANT_BATCHES, BATCH,
+                          key_space=cfg.key_space,
+                          value_width=cfg.value_width, device=db.device)
+    est, _ = engine.run_ops(est, ops, db.ecfg)
+    a, b = dict(_leaves(est)), dict(_leaves(db.estates[0]))
+    if a.keys() != b.keys():
+        raise AssertionError("partition 0 and the lone engine differ in "
+                             "structure")
+    for name, x in a.items():
+        if not torch.equal(_bits(x).cpu(), _bits(b[name]).cpu()):
+            raise AssertionError(f"shared nothing: partition 0's {name} "
+                                 "differs from a lone engine's")
+    return len(a)
+
+
+def _trace_kernels(db, cfg) -> dict:
+    """PART_TRACE_PUTS routed puts of fresh uniform keys under
+    ``obs.maybe_trace``: the Chrome trace must hold a B1 and a B2 kernel
+    event (a trace with no device event at all, CUPTI delivering nothing,
+    is taken again once).  Returns the counts and the keys sent."""
+    import glob
+    import numpy as np
+    import torch
+    from repro_torch.obs import maybe_trace
+    rng = np.random.default_rng(PART_SEED + 1)
+    where = OUT / "trace_partitioned"
+    sent = 0
+    for attempt in range(2):
+        for f in glob.glob(str(where / "trace_*.json")):
+            Path(f).unlink()
+        keys = torch.from_numpy(rng.integers(
+            0, cfg.key_space, (PART_TRACE_PUTS, BATCH)).astype(np.int32)
+            ).to(db.device)
+        c0 = sum(db.counters["compactions"])
+        with maybe_trace(str(where)):
+            for k in keys:
+                db.put(k)
+        sent += keys.numel()
+        comps = sum(db.counters["compactions"]) - c0
+        (path,) = glob.glob(str(where / "trace_*.json"))
+        events = json.loads(Path(path).read_text())["traceEvents"]
+        kern = [e.get("name", "") for e in events
+                if e.get("cat") == "kernel"]
+        found = {k: sum(v in n for n in kern)
+                 for k, v in PART_TRACE_NAMES.items()}
+        if kern:
+            break
+    out = {"trace": str(Path(path).relative_to(ROOT)),
+           "trace_mib": Path(path).stat().st_size / 2**20,
+           "kernel_events": len(kern), "compactions": comps,
+           "attempts": attempt + 1, **found, "keys_sent": sent}
+    if min(found.values()) <= 0:
+        raise AssertionError(f"partitioned: the trace holds no B1 or no B2 "
+                             f"kernel event: {out}")
+    return out
+
+
+def partitioned_phase(device=None) -> dict:
+    """``PartitionedDB(paper_tier_config(SCALE), PART_P)``: main's preload
+    routed, PART_SEGMENT routed batches alternating put and get, then the
+    PART_TENANTS tenants, one a partition, through ``run_workload``; on
+    backend "cuda" and again "reference" (per-partition counters, drops,
+    every tier leaf and the obs histograms equal, or parted only at an
+    msc_score near-tie), and the preload and routed segment again at
+    quantum DRAIN_Q on "cuda" (B3/B4 launch, the tier state equals run to
+    completion's).  Shared nothing (``_lone_partition0``), routed writes
+    read back, a batch of BATCH identical keys drops BATCH - BATCH /
+    PART_P * 2, the merged snapshot's histogram mass equals the routed
+    valid lanes plus the tenants' ops, the snapshot as JSON lines, and a
+    ``maybe_trace`` window with B1 and B2 in it."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.prismdb_kv import paper_tier_config
+    from repro_torch.obs import export
+    cfg = paper_tier_config(SCALE)
+    t_phase = time.time()
+    out = {"phase": "partitioned", "partitions": PART_P, "scale": SCALE,
+           "scale_cut": "paper_tier_config(12) of the paper's 1536: a 50% "
+           "preload fills the run directory at larger scales (F1)",
+           "key_space": cfg.key_space, "fast_slots": cfg.fast_slots,
+           "batch": BATCH, "pad": max(2 * BATCH // PART_P, 8),
+           "preload_keys": cfg.key_space // 2,
+           "routed_batches": PART_SEGMENT,
+           "tenants": [f"{k}-{n}" for k, n in PART_TENANTS],
+           "tenant_batches": PART_TENANT_BATCHES}
+    log, recs, dbs = [], {}, {}
+    for leg in ("cuda", "reference"):
+        out[leg], dbs[leg], recs[leg] = _partitioned_leg(
+            cfg, leg, log=log if leg == "cuda" else None, device=device)
+        print(f"# partitioned {leg}: {out[leg]['compactions']} compactions",
+              file=sys.stderr, flush=True)
+    a, b = dbs["cuda"], dbs["reference"]
+    why = _explain_divergence(log, recs["cuda"]["comps"], {
+        "cuda": recs["cuda"]["digests"],
+        "reference": recs["reference"]["digests"]})
+    out["legs"] = {"divergence": why}
+    fails = []
+    if why["first_step_tier_differs"] is None:
+        out["legs"].update({
+            "counters_equal": a.counters == b.counters,
+            "dropped_equal": a.dropped_per_partition
+            == b.dropped_per_partition,
+            "hist_equal": bool(np.array_equal(
+                a.obs_snapshot()["hist"], b.obs_snapshot()["hist"]))})
+        fails += [f"{k} is false" for k, v in out["legs"].items()
+                  if k != "divergence" and not v]
+    elif not why["explained"]:
+        fails.append("the legs part where no msc_score near-tie accounts "
+                     "for it")
+    del dbs["reference"], b
+    torch.cuda.empty_cache()
+    for name in ("clock_update", "msc_score"):
+        if out["cuda"]["launches"][name] <= 0:
+            fails.append(f"kernel {name} never launched")
+    # the preload and routed segment at quantum DRAIN_Q
+    out["cuda_quantum"], dbq, recq = _partitioned_leg(
+        cfg, "cuda", quantum=DRAIN_Q, tenants=False, device=device)
+    out["cuda_quantum"]["tier_equal_cuda"] = \
+        recq["digests"] == recs["cuda"]["digests"][:2]
+    if not out["cuda_quantum"]["tier_equal_cuda"]:
+        fails.append("the quantized leg's tier state differs from run to "
+                     "completion's")
+    for name in ("select_gather_rows", "scatter_rows"):
+        if out["cuda_quantum"]["launches"][name] <= 0:
+            fails.append(f"kernel {name} never launched at quantum")
+    del dbq
+    torch.cuda.empty_cache()
+    if fails:
+        emit(out)
+        raise AssertionError("partitioned: " + "; ".join(fails))
+
+    db, rec = a, recs["cuda"]
+    pre, seg, works = _partitioned_inputs(cfg)
+    out["shared_nothing_leaves_equal"] = _lone_partition0(db, cfg, pre, seg,
+                                                          works[0])
+    # routed read-back: a sample of the routed puts the router placed
+    from repro_torch.core.db import route_batch
+    acked = []
+    for k in list(pre.split(BATCH)) + list(seg[0::2]):
+        routed, valid, _ = route_batch(k.to(db.device), PART_P,
+                                       2 * BATCH // PART_P)
+        acked.append(routed[valid].cpu())
+    acked = torch.unique(torch.cat(acked))
+    pick = np.random.default_rng(5).choice(
+        acked.numel(), min(65536, acked.numel()), replace=False)
+    sample = acked[torch.from_numpy(pick)].to(db.device)
+    out["readback"] = _partitioned_readback(db, sample)
+    rec["sent"] += sample.numel()
+    d0 = db.dropped
+    db.put(torch.full((BATCH,), 7, dtype=torch.int32, device=db.device))
+    rec["sent"] += BATCH
+    out["identical_keys_dropped"] = db.dropped - d0
+    if out["identical_keys_dropped"] != BATCH - 2 * BATCH // PART_P:
+        fails.append(f"{BATCH} identical keys dropped "
+                     f"{out['identical_keys_dropped']}")
+    if device is None:
+        out["trace"] = _trace_kernels(db, cfg)
+        rec["sent"] += out["trace"]["keys_sent"]
+    snap = db.obs_snapshot()
+    want = rec["sent"] - db.dropped + rec["tenant_ops"]
+    out["hist_mass"] = {"merged": int(snap["hist"].sum()), "want": want}
+    if out["hist_mass"]["merged"] != want:
+        fails.append(f"merged histogram mass {out['hist_mass']}")
+    out["jsonl_records"] = export.write_jsonl(
+        OUT / "partitioned.jsonl", snap, meta={"phase": "partitioned"})
+    out["modeled_us"] = export.quantiles_from_hist(snap["hist"],
+                                                   sums=snap["hist_sum"])
+    out["nvidia_smi"] = smi_line() if device is None else None
+    out["phase_s"] = time.time() - t_phase
+    if fails:
+        emit(out)
+        raise AssertionError("partitioned: " + "; ".join(fails))
+    out["ok"] = True
+    return out
+
+
 # ------------------------------------------------------------ phase 5
 
 def _prepare_plain_movers(est, cfg, ecfg, toks):
@@ -2951,6 +3343,8 @@ def main() -> int:
     line, _ = three_tier_phase(quantum=DRAIN_Q, base=base)
     del base
     emit(line)
+    # the partitioned store: routed batches and one tenant a partition
+    emit(partitioned_phase())
 
     # the full-size state, run to completion and at quantum DRAIN_Q; the
     # two 9 GiB states are compared through per-leaf checksums

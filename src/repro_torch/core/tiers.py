@@ -491,25 +491,38 @@ def scan_batch(state: TierState, cfg: TierConfig, starts: torch.Tensor,
     return state._replace(ctr=ctr), n_live
 
 
-def counters_dict(ctr: Counters) -> dict:
+def counters_dict(ctr, partitioned: bool = False) -> dict:
     """Host-side counter export: every pair-era scalar key plus the
-    ``*_by_tier`` vector keys (the JAX package's ``counters_dict``)."""
+    ``*_by_tier`` vector keys (the JAX package's ``counters_dict``).
+    With ``partitioned=True``, ``ctr`` is a list of per-partition
+    ``Counters`` or stacked ones (a leading partition axis on every
+    leaf), and each value becomes a per-partition list."""
+    if not isinstance(ctr, Counters):
+        ctr = Counters(*[torch.stack(x) for x in zip(*ctr)])
     vec = {"hits", "reads", "writes", "comp_reads", "scan_reads",
            "comp_by_boundary"}
+
+    def ints(a):
+        return [ints(row) for row in a] if a.ndim > 1 else \
+            [int(x) for x in a]
+
+    def cast(a):
+        return [int(x) for x in a] if partitioned else int(a)
+
     d = {}
     host = {k: np.asarray(v.cpu()) for k, v in ctr._asdict().items()}
     for k, a in host.items():
         if k in vec:
             key = k if k == "comp_by_boundary" else k + "_by_tier"
-            d[key] = [int(x) for x in a]
+            d[key] = ints(a)
         else:
-            d[k] = int(a)
-    d["hits_fast"] = int(host["hits"][0])
-    d["hits_slow"] = int(host["hits"][1:].sum())
-    d["fast_reads"] = int(host["reads"][0])
-    d["slow_reads"] = int(host["reads"][1:].sum())
-    d["fast_writes"] = int(host["writes"][0])
-    d["slow_writes"] = int(host["writes"][1:].sum())
-    d["comp_reads"] = int(host["comp_reads"].sum())
-    d["scan_reads"] = int(host["scan_reads"].sum())
+            d[k] = ints(a) if partitioned else int(a)
+    d["hits_fast"] = cast(host["hits"][..., 0])
+    d["hits_slow"] = cast(host["hits"][..., 1:].sum(axis=-1))
+    d["fast_reads"] = cast(host["reads"][..., 0])
+    d["slow_reads"] = cast(host["reads"][..., 1:].sum(axis=-1))
+    d["fast_writes"] = cast(host["writes"][..., 0])
+    d["slow_writes"] = cast(host["writes"][..., 1:].sum(axis=-1))
+    d["comp_reads"] = cast(host["comp_reads"].sum(axis=-1))
+    d["scan_reads"] = cast(host["scan_reads"].sum(axis=-1))
     return d

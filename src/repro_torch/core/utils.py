@@ -61,6 +61,42 @@ def mix32(x: torch.Tensor, salt: int = 0) -> torch.Tensor:
     return x
 
 
+def part_of_key(keys: torch.Tensor, n_parts: int, salt: int = 4
+                ) -> torch.Tensor:
+    """Owning partition of each key (int32): ``mix32`` then modulo.  The
+    one rule of key placement, shared by ``db.route_batch`` and the
+    process-group exchange (``distributed.collectives.exchange_keys``)."""
+    return (mix32(keys, salt) % n_parts).to(torch.int32)
+
+
+def pack_buckets(keys: torch.Tensor, part: torch.Tensor, n: int, cap: int,
+                 valid: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scatter a batch into ``[n, cap]`` per-destination buckets, in-batch
+    order kept within a bucket (a stable sort).  Returns ``(buckets,
+    bucket_valid, dropped)``: empty slots hold -1, and the lanes beyond
+    ``cap`` in one bucket are counted in the per-destination ``dropped``
+    (int32[n]).  ``valid=None`` treats every lane live; invalid lanes
+    land nowhere and count nowhere.  Overflow and invalid lanes write to
+    a spare row ``n`` that is cut off (torch has no drop mode)."""
+    b = keys.shape[0]
+    dev = keys.device
+    if valid is None:
+        valid = torch.ones(b, dtype=torch.bool, device=dev)
+    part = torch.where(valid, part.to(torch.int64), n)
+    part_s, order = torch.sort(part, stable=True)
+    keys_s = keys[order].to(torch.int32)
+    rank = torch.arange(b, device=dev) - torch.searchsorted(part_s, part_s)
+    ok = rank < cap
+    tgt = torch.where(ok, part_s, n)
+    out = torch.full(((n + 1) * cap,), -1, dtype=torch.int32, device=dev)
+    out.index_put_((tgt * cap + rank.clamp(0, cap - 1),), keys_s)
+    out = out.view(n + 1, cap)[:n]
+    dropped = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    dropped.index_add_(0, part_s, (~ok).to(torch.int32))
+    return out, out >= 0, dropped[:n]
+
+
 def fdiv(a, b) -> torch.Tensor:
     """IEEE float32 division ``a / b`` where either side may be a Python
     number.  torch computes ``number / tensor`` as ``reciprocal * number``,

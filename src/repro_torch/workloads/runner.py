@@ -62,3 +62,22 @@ def run_schedule(estate: engine.EngineState, gst: GenState,
                       found=torch.stack(found), fast=torch.stack(fast),
                       returned=torch.stack(returned))
     return estate, gst, rng, stats
+
+
+def run_tenants(estates: list, gsts: list, rngs: torch.Tensor,
+                scheds: list, cfg: engine.EngineConfig, *, n_batches: int,
+                batch: int, t0: int = 0
+                ) -> tuple[list, list, torch.Tensor, StepStats]:
+    """``run_schedule`` for each tenant: tenant i runs ``scheds[i]`` on
+    ``estates[i]`` (partition i of a ``PartitionedDB``) from its
+    generator ``gsts[i]`` and key ``rngs[i]`` (int64[P, 2]).  Tenants
+    share nothing, so tenant-major order (tenant 0's whole segment, then
+    tenant 1's, ...) gives the bits of the JAX package's vmap over
+    tenants.  Returns the new states, generators and keys, and StepStats
+    stacked [P, T]."""
+    out = [run_schedule(e, g, r, s, cfg, n_batches=n_batches, batch=batch,
+                        t0=t0)
+           for e, g, r, s in zip(estates, gsts, rngs, scheds)]
+    est, gen, rng, stats = zip(*out)
+    return (list(est), list(gen), torch.stack(rng),
+            StepStats(*[torch.stack(x) for x in zip(*stats)]))
