@@ -60,6 +60,26 @@ Phases, each printed as one JSON line:
                  decode_step from a float32 cache: a teacher-forced
                  prefix held against the "cuda" forward's logits, then
                  greedy tokens
+  2g. vlm_prefill -- qwen2-vl-2b at full width (float32 weights from a
+                 seed): forward and loss_fn from patch embeddings and the
+                 stub frontend's M-RoPE positions on backend "cuda" (the
+                 flash_attention kernel once per layer, GQA group 6) and
+                 "reference", both profiled; the argmax gate of prefill,
+                 and every layer's kernel core (atol ATTN_CORE_TOL) and
+                 block (BLOCK_TOL) on the model's own activations
+  2h. vlm_serve -- the same model through ServeEngine as in serve,
+                 VLM_SERVE_SHAPE: every request retires, pages demoted and
+                 read back, B1-B5 launch, the legs' tokens bit-equal, B6
+                 on one layer's live pools
+  2i. whisper_prefill -- whisper-small at full width: the encoder-decoder
+                 forward on backend "cuda" (flash_attention in the 12
+                 non-causal encoder layers over 1,500 frames and the 12
+                 causal decoder layers) and "reference"; the argmax gate
+                 and the per-layer gate of vlm_prefill, encoder included
+  2j. whisper_decode -- the cross cache filled from the port's encoder
+                 output (the JAX package leaves it zero), a teacher-forced
+                 prefix held against the forward's logits, then greedy
+                 tokens, ms a token
   3. parity   -- the engine at paper_tier_config(scale=1) on one op
                  stream: backend "cuda" on the card vs "reference" on the
                  card and on the CPU; state, counters and per-op results
@@ -130,6 +150,7 @@ reports go to chiprun_out/.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import subprocess
@@ -188,10 +209,17 @@ PREFILL_TIE = 1e-3
 # (the prefill phase's) and gemma3-1b's (head dim 256, 5:1 local layers
 # of window 512; src/repro/configs/gemma3_1b.py)
 PHI4_ATTN, GEMMA3_ATTN = (2, 24, 8, 2048, 128), (1, 4, 1, 4096, 256)
+# ... and whisper-small's encoder (non-causal, the whisper_prefill phase's)
+# and qwen2-vl-2b's prefill (the vlm_prefill phase's)
+WHISPER_ENC_ATTN, QWEN2VL_ATTN = (2, 12, 12, 1500, 64), (2, 12, 2, 2048, 128)
 # Serving: two waves of requests through the 16 slots of serve_kv_config
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 24, 256, 32
-SERVE_TRACE_AT, SERVE_TRACE_TICKS = 100, 4   # profiled ticks of the cuda leg
-SERVE_B6_AT = 200              # tick whose live pools B6 is checked on
+# (requests, prompt and new tokens each, the first of SERVE_TRACE_TICKS
+# profiled ticks of the cuda leg, the tick whose live pools B6 is checked
+# on)
+ServeShape = collections.namedtuple(
+    "ServeShape", "requests prompt new trace_at b6_at")
+SERVE_SHAPE = ServeShape(24, 256, 32, 100, 200)
+SERVE_TRACE_TICKS = 4
 # rwkv6-7b at its published width (src/repro/configs/rwkv6_7b.py,
 # arXiv:2404.05892: 32 layers, d 4,096, 64 heads of 64, channel mix
 # 14,336, vocab 65,536 untied), float32 weights from RWKV_SEED (30.6 GB),
@@ -235,6 +263,36 @@ JAMBA_PERTURB = 1e-7
 # jamba_prefill phase's) and a ragged one (T off the chunk, Di off the
 # block of 128)
 MAMBA_SCAN, MAMBA_RAGGED = (2, 2048, 8192, 16), (2, 37, 300, 16)
+
+# qwen2-vl-2b at its published width (src/repro/configs/qwen2_vl_2b.py,
+# arXiv:2409.12191: 28 layers, d 1,536, 12 heads / 2 KV of 128, d_ff
+# 8,960, vocab 151,936 tied, biases on q/k/v, M-RoPE sections 16/24/24),
+# float32 weights from VLM_SEED (1.54 B parameters, 6.2 GB).  Prefill:
+# patch embeddings [PREFILL_BATCH, PREFILL_SEQ, d] x 0.02 and labels from
+# VLM_INPUT_SEED, with the stub frontend's positions (t, t % 7, t % 5),
+# t = arange (src/repro/train/data.py:55-64).  Serving: VLM_SERVE_SHAPE
+# through serve_kv_config's pools (the fast pool holds 128 of the 160
+# pages that end up live).
+VLM_MODEL = "qwen2-vl-2b"
+VLM_SEED, VLM_INPUT_SEED, VLM_SERVE_SEED = 21, 22, 23
+VLM_SERVE_SHAPE = ServeShape(16, 128, 32, 60, 120)
+# whisper-small at its published width (src/repro/configs/whisper_small.py,
+# arXiv:2212.04356: 12 encoder and 12 decoder layers, d 768, 12 heads of
+# 64, d_ff 3,072, vocab 51,865 tied), float32 weights from WHISPER_SEED
+# (0.24 B parameters, 1 GB).  Prefill: frame embeddings [PREFILL_BATCH,
+# enc_seq 1,500, d] x 0.02 (src/repro/train/data.py:47-53) and
+# WHISPER_TOKENS decoder tokens (the decoder's 448-token text context in
+# the paper) from WHISPER_INPUT_SEED; decode from a cross cache filled
+# with the port's encoder output: WHISPER_FORCED teacher-forced tokens,
+# then WHISPER_NEW greedy ones.
+WHISPER_MODEL = "whisper-small"
+WHISPER_SEED, WHISPER_INPUT_SEED = 24, 25
+WHISPER_TOKENS, WHISPER_FORCED, WHISPER_NEW = 448, 64, 32
+# Per attention layer, on the model's own activations: B7 against its
+# plain version on the layer's q, k, v (max abs, float32: the kernel
+# tests' 2e-5), and the whole block on "cuda" against "reference" from
+# the same input (relative, Frobenius norm).
+ATTN_CORE_TOL, BLOCK_TOL = 2e-5, 1e-5
 
 
 def emit(obj: dict) -> None:
@@ -2212,10 +2270,12 @@ def _flash_instance(d: int, dtype) -> str:
 
 def check_flash_attention(rng, instances: dict) -> dict:
     """B7 against its plain version (``attention_ref``) on the card at
-    phi4-mini's prefill shape (f32 and bf16, causal) and gemma3-1b's
-    (head dim 256, window 512 and global), atol 2e-5 in f32 and 2e-2 in
-    bf16 (tests/test_kernels.py:28); the library call is
-    ``scaled_dot_product_attention`` with the same mask and GQA.  Bound:
+    phi4-mini's prefill shape (f32 and bf16, causal), gemma3-1b's (head
+    dim 256, window 512 and global), whisper-small's encoder (non-causal,
+    1,500 rows off the 64-row tile) and qwen2-vl-2b's prefill (GQA group
+    6), atol 2e-5 in f32 and 2e-2 in bf16 (tests/test_kernels.py:28); the
+    library call is ``scaled_dot_product_attention`` with the same mask
+    and GQA.  Bound:
     the larger of q, k, v and o moved once at HBM_BYTES_PER_S and
     4 * B * Hq * D FLOPs per visible pair at the dtype's peak.  Each
     shape's row names its kernel instance's tensor-core instructions and
@@ -2228,17 +2288,19 @@ def check_flash_attention(rng, instances: dict) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     dev = torch.device("cuda")
     shapes = []
-    for tag, (b, hq, hkv, s, d), window in (
-            ("phi4_prefill", PHI4_ATTN, -1),
-            ("gemma3_local", GEMMA3_ATTN, 512),
-            ("gemma3_global", GEMMA3_ATTN, -1)):
+    for tag, (b, hq, hkv, s, d), window, causal in (
+            ("phi4_prefill", PHI4_ATTN, -1, True),
+            ("gemma3_local", GEMMA3_ATTN, 512, True),
+            ("gemma3_global", GEMMA3_ATTN, -1, True),
+            ("whisper_encoder", WHISPER_ENC_ATTN, -1, False),
+            ("qwen2vl_prefill", QWEN2VL_ATTN, -1, True)):
         for dtype in (torch.float32, torch.bfloat16):
             gen = torch.Generator(dev).manual_seed(int(rng.integers(1 << 30)))
             q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
             k = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
             v = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
-            got = ops.flash_attention(q, k, v, causal=True, window=window)
-            want = attention_ref(q, k, v, causal=True, window=window)
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             tol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -2251,15 +2313,15 @@ def check_flash_attention(rng, instances: dict) -> dict:
             if window > 0:
                 mask &= pos[None, :] > pos[:, None] - window
             lib = (lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)) if window < 0 \
+                q, k, v, is_causal=causal, enable_gqa=True)) if window < 0 \
                 else (lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True))
-            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
-                                                     window=window), 5, 1)
-            plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True,
-                                                     window=window), 2, 1)
+            ms = cuda_ms(lambda: ops.flash_attention(
+                q, k, v, causal=causal, window=window), 5, 1)
+            plain_ms = cuda_ms(lambda: attention_ref(
+                q, k, v, causal=causal, window=window), 2, 1)
             lib_ms = cuda_ms(lib, 5, 1)
-            pairs = _visible_pairs(s, s, True, window)
+            pairs = _visible_pairs(s, s, causal, window)
             inst = {k: v for k, v in instances.items()
                     if _flash_instance(d, dtype) in k}
             flops = 4 * b * hq * d * pairs
@@ -2269,6 +2331,7 @@ def check_flash_attention(rng, instances: dict) -> dict:
             shapes.append({
                 "tag": tag, "dtype": str(dtype).split(".")[1],
                 "q": [b, hq, s, d], "kv": [b, hkv, s, d], "window": window,
+                "causal": causal,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "bound_ms": max(b_bytes, b_ops),
                 "bound_by": "bytes" if b_bytes >= b_ops else "operations",
@@ -2461,7 +2524,7 @@ def _forward_legs(cfg, params, batch, expect: dict, phase: str,
     import torch
     from repro_torch import kernels
     from repro_torch.models import model
-    n_tok = batch["tokens"].numel()
+    n_tok = batch["labels"].numel()
     legs, logits = {}, {}
     for backend in ("cuda", "reference"):
         torch.cuda.reset_peak_memory_stats()
@@ -2503,9 +2566,9 @@ def _forward_legs(cfg, params, batch, expect: dict, phase: str,
 
 
 def _decode_legs(cfg, params, tokens, ref_logits, n_forced: int,
-                 n_new: int, phase: str):
-    """``decode_step`` from a float32 ``init_cache`` of batch
-    ``tokens.shape[0]``: ``tokens``' first ``n_forced`` positions
+                 n_new: int, phase: str, cache=None):
+    """``decode_step`` from ``cache`` (default: a float32 ``init_cache``
+    of batch ``tokens.shape[0]``): ``tokens``' first ``n_forced`` positions
     teacher-forced, their logits held against ``ref_logits``'
     (``_argmax_gate``); then ``n_new`` greedy tokens from that state,
     timed one by one.  Raises on non-finite logits or greedy tokens out
@@ -2515,8 +2578,9 @@ def _decode_legs(cfg, params, tokens, ref_logits, n_forced: int,
     from repro_torch.models import model
     dev = tokens.device
     b = tokens.shape[0]
-    cache = model.init_cache(cfg, b, n_forced + n_new, dtype=torch.float32,
-                             device=dev)
+    if cache is None:
+        cache = model.init_cache(cfg, b, n_forced + n_new,
+                                 dtype=torch.float32, device=dev)
     pos = torch.zeros(b, dtype=torch.int32, device=dev)
     forced = []
     torch.cuda.synchronize()
@@ -2968,6 +3032,253 @@ def jamba_decode_phase(params, cfg, tokens) -> dict:
     return out
 
 
+# ------------------------------------------------ vlm and audio families
+
+def _attn_layer_check(cfg, blocks, x, pos, causal: bool, advance) -> dict:
+    """B7 held against its plain version inside the model, layer by layer,
+    on the model's own activations: each layer's q, k, v (from its normed
+    input ``x``) through the kernel and through ``attention_ref`` (max abs
+    error), then the whole block on backend "cuda" and "reference" from
+    the same input (relative error, Frobenius norm); ``advance(blk, x,
+    backend)`` applies a block, and the "cuda" output feeds the next
+    layer.  Returns the errors per layer and the last hidden state."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention
+    from repro_torch.models.common import norm
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    out = {"core_max_abs_err": [], "block_rel_err": [],
+           "residual_rms": []}
+    with torch.no_grad():
+        for blk in blocks:
+            h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+            q, k, v = attention._qkv(blk["mixer"], cfg, h, pos)
+            got = mha(q, k, v, causal=causal, backend="cuda")
+            want = attention_ref(q, k, v, causal=causal)
+            out["core_max_abs_err"].append(float((got - want).abs().max()))
+            del h, q, k, v, got, want
+            y, yr = advance(blk, x, "cuda"), advance(blk, x, "reference")
+            out["block_rel_err"].append(rel(y, yr))
+            out["residual_rms"].append(float(y.pow(2).mean().sqrt()))
+            del yr
+            x = y
+    return out, x
+
+
+def _layer_gate(phase: str, out: dict, checks: dict) -> None:
+    """Fail ``phase`` when a layer's B7 core error passes ATTN_CORE_TOL or
+    its block error BLOCK_TOL."""
+    core = max(e for c in checks.values() for e in c["core_max_abs_err"])
+    block = max(e for c in checks.values() for e in c["block_rel_err"])
+    if not (core <= ATTN_CORE_TOL and block <= BLOCK_TOL):
+        emit(out)
+        raise AssertionError(
+            f"{phase}: a layer's B7 core differs from its plain version by "
+            f"{core} (bound {ATTN_CORE_TOL}) or its block's backends by "
+            f"{block} (bound {BLOCK_TOL})")
+
+
+def _prefill_shares(legs: dict) -> None:
+    """Add each profiled leg's GEMM share of its device time."""
+    for leg in legs.values():
+        prof = leg.get("profiled_forward")
+        if prof:
+            busy_ms = prof["device_busy_share"] * prof["window_s"] * 1e3
+            prof["gemm_share"] = prof["group_ms"]["gemm"] / busy_ms
+
+
+def vlm_batch(cfg, seed: int = VLM_INPUT_SEED, device=None) -> dict:
+    """The stub vision frontend's output at [PREFILL_BATCH, PREFILL_SEQ]:
+    patch embeddings N(0, 0.02^2) and text labels from ``seed``, and the
+    positions (t, t % 7, t % 5), t = arange, in [B, S, 3]."""
+    import torch
+    dev = torch.device(device or "cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    shape = (PREFILL_BATCH, PREFILL_SEQ)
+    tt = torch.arange(PREFILL_SEQ, device=dev)
+    return {"embeds": 0.02 * torch.randn((*shape, cfg.d_model),
+                                         generator=gen, device=dev),
+            "positions": torch.stack([tt, tt % 7, tt % 5], -1)[None]
+            .expand(*shape, 3),
+            "labels": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                    device=dev)}
+
+
+def vlm_prefill_phase(params, cfg, device=None) -> dict:
+    """qwen2-vl-2b's prefill forward at full width on ``params`` from
+    ``vlm_batch``: ``loss_fn`` and ``forward`` on backend "cuda" (B7 in
+    all 28 layers: q [2, 12, 2048, 128], kv [2, 2, 2048, 128], causal) and
+    "reference" (the masked softmax over the temporal stream), both
+    profiled.  Gates: B7 launches once per layer on "cuda" and never on
+    "reference"; the argmax agrees at >= 99.9% of positions with every
+    flip a near-tie (``_gate_ok``); every layer's B7 core and block hold
+    (``_attn_layer_check``).  The stub positions keep t contiguous, where
+    the two backends' masks agree (known difference D6)."""
+    import torch
+    from repro_torch.models import model
+    batch = vlm_batch(cfg, device=device)
+    out = {"phase": "vlm_prefill", "model": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "m_rope_sections": list(cfg.m_rope_sections),
+           "embeds": list(batch["embeds"].shape),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in _param_leaves(params)) / 1e9}
+    legs, logits = _forward_legs(cfg, params, batch,
+                                 {"flash_attention": cfg.n_layers},
+                                 "vlm_prefill", profile=("cuda", "reference"))
+    _prefill_shares(legs)
+    out.update(legs)
+    gate = _argmax_gate(logits["cuda"], logits["reference"])
+    out.update(gate)
+    out["loss_abs_diff"] = abs(legs["cuda"]["loss"]
+                               - legs["reference"]["loss"])
+    del logits
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    pos = batch["positions"]
+    check, _ = _attn_layer_check(
+        cfg, params["blocks"], batch["embeds"], pos, True,
+        lambda blk, x, bk: model._block_apply(cfg, blk, x, pos, -1, "attn",
+                                              False, bk)[0])
+    check["seconds"] = time.time() - t0
+    out["layer_check"] = check
+    _layer_gate("vlm_prefill", out, {"decoder": check})
+    if not _gate_ok(gate):
+        emit(out)
+        raise AssertionError("vlm_prefill: the backends' argmax differ "
+                             "beyond near-ties")
+    return out
+
+
+def whisper_batch(cfg, seed: int = WHISPER_INPUT_SEED, device=None) -> dict:
+    """The stub audio frontend's frame embeddings [PREFILL_BATCH,
+    enc_seq, d] N(0, 0.02^2), and WHISPER_TOKENS decoder tokens a row
+    with their next-token labels, from ``seed``."""
+    import torch
+    dev = torch.device(device or "cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    enc = 0.02 * torch.randn((PREFILL_BATCH, cfg.enc_seq, cfg.d_model),
+                             generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, WHISPER_TOKENS),
+                           generator=gen, device=dev)
+    return {"enc_embeds": enc, "tokens": tokens,
+            "labels": torch.roll(tokens, -1, dims=1)}
+
+
+def whisper_prefill_phase(params, cfg, device=None):
+    """whisper-small's forward at full width on ``params`` from
+    ``whisper_batch``: ``loss_fn`` and ``forward`` on backend "cuda" (B7
+    in all 24 attention layers: 12 encoder layers non-causal over 1,500
+    frames, q [2, 12, 1500, 64]; 12 decoder layers causal over 448
+    tokens; profiled) and "reference".  Gates: B7 launches once per layer
+    on "cuda" and never on "reference"; the argmax gate of ``prefill``;
+    every encoder and decoder layer's B7 core and block hold
+    (``_attn_layer_check``).  Returns (phase line, the batch, the "cuda"
+    forward's logits)."""
+    import torch
+    from repro_torch.models import model
+    from repro_torch.models.common import norm
+    batch = whisper_batch(cfg, device=device)
+    out = {"phase": "whisper_prefill", "model": cfg.name,
+           "encoder_layers": cfg.enc_layers, "decoder_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "frames": list(batch["enc_embeds"].shape),
+           "tokens": list(batch["tokens"].shape),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in _param_leaves(params)) / 1e9}
+    legs, logits = _forward_legs(
+        cfg, params, batch, {"flash_attention": cfg.enc_layers
+                             + cfg.n_layers}, "whisper_prefill")
+    _prefill_shares(legs)
+    for leg in legs.values():
+        leg["frames_per_s"] = batch["enc_embeds"].shape[0] \
+            * batch["enc_embeds"].shape[1] / leg["forward_s"]
+    out.update(legs)
+    gate = _argmax_gate(logits["cuda"], logits["reference"])
+    out.update(gate)
+    out["loss_abs_diff"] = abs(legs["cuda"]["loss"]
+                               - legs["reference"]["loss"])
+    fwd = logits["cuda"]
+    del logits
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    x = batch["enc_embeds"]
+    b, se = x.shape[:2]
+    pos = torch.arange(se, device=x.device)[None].expand(b, se)
+    enc_check, enc = _attn_layer_check(
+        cfg, params["enc_blocks"], x, pos, False,
+        lambda blk, x, bk: model._enc_block(cfg, blk, x, pos, bk))
+    enc = norm(params["enc_final_norm"], enc, cfg.norm_kind, cfg.norm_eps)
+    x = params["embed"][batch["tokens"]]
+    dpos = torch.arange(x.shape[1], device=x.device)[None].expand(b, -1)
+    dec_check, _ = _attn_layer_check(
+        cfg, params["blocks"], x, dpos, True,
+        lambda blk, x, bk: model._dec_block(cfg, blk, x, dpos, enc, bk))
+    out["layer_check"] = {"encoder": enc_check, "decoder": dec_check,
+                          "seconds": time.time() - t0}
+    del enc
+    _layer_gate("whisper_prefill", out, {"encoder": enc_check,
+                                         "decoder": dec_check})
+    if not _gate_ok(gate):
+        emit(out)
+        raise AssertionError("whisper_prefill: the backends' argmax differ "
+                             "beyond near-ties")
+    return out, batch, fwd
+
+
+def whisper_decode_phase(params, cfg, batch, fwd_logits) -> dict:
+    """whisper-small's decoder decode at full width: the cross cache
+    filled with each layer's K/V projection of the port's encoder output
+    (backend "cuda"; the JAX package leaves it zero, reference fault F6,
+    so one step from the zero cache is also measured against the
+    forward), then ``_decode_legs`` of batch PREFILL_BATCH: the first
+    WHISPER_FORCED decoder tokens teacher-forced, their logits held
+    against the whisper_prefill "cuda" forward's at the same positions
+    by ``_gate_ok``; then WHISPER_NEW greedy tokens.  The decode runs no
+    kernel in either package (the dense-cache self-attention and the
+    cached cross-attention)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import attention, model
+    tokens = batch["tokens"][:, :WHISPER_FORCED]
+    b = tokens.shape[0]
+    t0 = time.time()
+    enc = model._encode(cfg, params, batch["enc_embeds"], "cuda")
+    cache = model.init_cache(cfg, b, WHISPER_FORCED + WHISPER_NEW,
+                             dtype=torch.float32, device=tokens.device)
+    with torch.no_grad():
+        for i, blk in enumerate(params["blocks"]):
+            cache["cross_k"][i].copy_(attention._proj(enc, blk["cross"]["wk"]))
+            cache["cross_v"][i].copy_(attention._proj(enc, blk["cross"]["wv"]))
+    torch.cuda.synchronize()
+    t_fill = time.time() - t0
+    del enc
+    zero = model.init_cache(cfg, b, 1, dtype=torch.float32,
+                            device=tokens.device)
+    lg0, _ = model.decode_step(cfg, params, zero, tokens[:, 0],
+                               torch.zeros(b, dtype=torch.int32,
+                                           device=tokens.device))
+    f6 = float((lg0 - fwd_logits[:, 0]).abs().max())
+    del zero, lg0
+    kernels.reset_launches()
+    out, cache = _decode_legs(cfg, params, tokens, fwd_logits,
+                              WHISPER_FORCED, WHISPER_NEW, "whisper_decode",
+                              cache=cache)
+    out.update({
+        "layers": cfg.n_layers, "cross_cache": list(cache["cross_k"].shape),
+        "encode_and_fill_s": t_fill,
+        "zero_cross_cache_step0_max_abs_diff": f6,
+        "decode_launches": {k: v for k, v in kernels.LAUNCHES.items()
+                            if v}})
+    if not _gate_ok(out):
+        emit(out)
+        raise AssertionError("whisper_decode: the teacher-forced decode's "
+                             "argmax differs from the forward's beyond "
+                             "near-ties")
+    return out
+
+
 # ------------------------------------------------------------ phase 7
 
 def serve_kv_config(cfg):
@@ -3074,32 +3385,37 @@ def _check_paged_attention(eng, seed: int) -> dict:
                            "plain_ms": f_plain, "bound_ms": f_bound}}
 
 
-def serve_engine(params, cfg, seed: int, backend: str, device=None):
+def serve_engine(params, cfg, seed: int, backend: str, device=None,
+                 shape=SERVE_SHAPE):
     """A ``ServeEngine`` at ``cfg``'s width over ``serve_kv_config`` on
-    ``backend``, holding SERVE_REQUESTS requests of SERVE_PROMPT prompt
-    tokens drawn from ``seed`` and SERVE_NEW new tokens each.  Returns
-    (engine, requests)."""
+    ``backend``, holding ``shape.requests`` requests of ``shape.prompt``
+    prompt tokens drawn from ``seed`` and ``shape.new`` new tokens each.
+    Returns (engine, requests)."""
     import numpy as np
     from repro_torch.serve.engine import Request, ServeEngine
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(1, cfg.vocab, SERVE_PROMPT).tolist()
-               for _ in range(SERVE_REQUESTS)]
+    prompts = [rng.integers(1, cfg.vocab, shape.prompt).tolist()
+               for _ in range(shape.requests)]
     eng = ServeEngine(cfg, serve_kv_config(cfg), params, seed=seed,
                       backend=backend, device=device)
-    reqs = [Request(rid=i, prompt=p, max_new=SERVE_NEW)
+    reqs = [Request(rid=i, prompt=p, max_new=shape.new)
             for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
     return eng, reqs
 
 
-def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
-    """``ServeEngine`` at phi4-mini-3.8b's full width over the tiered paged
-    KV cache (``serve_kv_config``: a 256 MiB bf16 fast pool that holds
-    fewer pages than the live ones, so tiering runs; a 4 GiB slow pool):
-    SERVE_REQUESTS requests of SERVE_PROMPT prompt tokens from ``seed``
-    and SERVE_NEW new tokens each, through max_seqs slots, on backend
-    "cuda" then "reference".  Every request must retire with SERVE_NEW
+def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None,
+                shape=SERVE_SHAPE, phase: str = "serve"):
+    """``ServeEngine`` at the model's full width over the tiered paged KV
+    cache (``serve_kv_config``: for phi4-mini-3.8b a 256 MiB bf16 fast
+    pool that holds fewer pages than the live ones, so tiering runs, and
+    a 4 GiB slow pool): ``shape.requests`` requests of ``shape.prompt``
+    prompt tokens from ``seed`` and ``shape.new`` new tokens each,
+    through max_seqs slots, on backend "cuda" then "reference"; the
+    "cuda" leg's ticks ``shape.trace_at`` on are profiled
+    (chiprun_out/profile_{phase}.txt) and B6 is checked on its pools at
+    tick ``shape.b6_at``.  Every request must retire with ``shape.new``
     tokens, pages must be demoted and read from the slow pool, B1-B5
     must launch on the "cuda" leg, the legs' tokens must be bit-equal,
     and their tier states equal or parted only at an msc_score near-tie
@@ -3109,9 +3425,9 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
     from repro_torch import kernels
     from repro_torch.core import engine
     kv_cfg = serve_kv_config(cfg)
-    out = {"phase": "serve", "model": cfg.name, "kv": kv_cfg._asdict(),
-           "requests": SERVE_REQUESTS, "prompt_tokens": SERVE_PROMPT,
-           "max_new": SERVE_NEW,
+    out = {"phase": phase, "model": cfg.name, "kv": kv_cfg._asdict(),
+           "requests": shape.requests, "prompt_tokens": shape.prompt,
+           "max_new": shape.new,
            "fast_pool_mib": 2 * kv_cfg.n_layers * kv_cfg.fast_pages
            * kv_cfg.page_tokens * kv_cfg.kv_heads * kv_cfg.head_dim * 2
            / 2**20,
@@ -3122,7 +3438,7 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
     b6 = None
     for leg in ("cuda", "reference"):
         torch.cuda.reset_peak_memory_stats()
-        eng, reqs = serve_engine(params, cfg, seed, leg, device)
+        eng, reqs = serve_engine(params, cfg, seed, leg, device, shape)
         kernels.reset_launches()
         engine.HOST_READS.n = 0
         walls, comps, digs = [], [], []
@@ -3132,14 +3448,14 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
         with scoring:
             while eng.queue or eng.active:
                 tick = eng.stats["steps"]
-                if leg == "cuda" and tick == SERVE_TRACE_AT:
+                if leg == "cuda" and tick == shape.trace_at:
                     def traced():
                         for _ in range(SERVE_TRACE_TICKS):
                             eng.step()
                             comps.append(int(eng.est.tier.ctr.compactions))
                             digs.append(_digest(eng.est.tier))
                     h0 = engine.HOST_READS.n
-                    busy = _profiled(traced, "profile_serve.txt")
+                    busy = _profiled(traced, f"profile_{phase}.txt")
                     busy.update(ticks=SERVE_TRACE_TICKS,
                                 host_reads=engine.HOST_READS.n - h0)
                     continue
@@ -3149,7 +3465,7 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
                 walls.append(time.perf_counter() - t0)
                 comps.append(int(eng.est.tier.ctr.compactions))
                 digs.append(_digest(eng.est.tier))
-                if leg == "cuda" and tick == SERVE_B6_AT:
+                if leg == "cuda" and tick == shape.b6_at:
                     b6 = _check_paged_attention(eng, seed)
         c = eng.counters
         w = np.asarray(walls) * 1e3
@@ -3176,14 +3492,14 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
         tokens[leg] = [list(r.out) for r in reqs]
         per_step[leg], digests[leg] = comps, digs
         ends[leg] = _digest(eng.est.tier)
-        print(f"# serve {leg}: {ticks} ticks {wall:.1f}s, "
+        print(f"# {phase} {leg}: {ticks} ticks {wall:.1f}s, "
               f"{c['compactions']} compactions", file=sys.stderr, flush=True)
         del eng
         torch.cuda.empty_cache()
     fails = []
     cu = out["cuda"]
-    if any(len(t) != SERVE_NEW for t in tokens["cuda"]) \
-            or cu["retired"] != SERVE_REQUESTS:
+    if any(len(t) != shape.new for t in tokens["cuda"]) \
+            or cu["retired"] != shape.requests:
         fails.append("a request did not retire with max_new tokens")
     if cu["demoted"] <= 0 or cu["hits_slow"] <= 0:
         fails.append("no page was demoted and read from the slow pool")
@@ -3206,7 +3522,7 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None):
     out["ok"] = not fails
     if fails:
         emit(out)
-        raise AssertionError("serve: " + "; ".join(fails))
+        raise AssertionError(f"{phase}: " + "; ".join(fails))
     return out, b6
 
 
@@ -3313,6 +3629,39 @@ def main() -> int:
     emit(jpre)
     emit(jamba_decode_phase(params, jcfg, jtok))
     del params, jtok
+    torch.cuda.empty_cache()
+
+    # qwen2-vl-2b at full width: the prefill forward on B7 from patch
+    # embeddings and M-RoPE positions, then serving through the tiered KV
+    # cache (B1-B5, B6 on its live pools)
+    vcfg = get_arch(VLM_MODEL)
+    t0 = time.time()
+    params = model.init_params(vcfg, torch.Generator("cuda").manual_seed(
+        VLM_SEED))
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    vpre = vlm_prefill_phase(params, vcfg)
+    vpre["init_params_s"] = t_init
+    emit(vpre)
+    vsrv, _ = serve_phase(params, vcfg, VLM_SERVE_SEED,
+                          shape=VLM_SERVE_SHAPE, phase="vlm_serve")
+    emit(vsrv)
+    del params
+    torch.cuda.empty_cache()
+
+    # whisper-small at full width: the encoder-decoder forward on B7, then
+    # the decode from a cross cache the encoder's output fills
+    wcfg = get_arch(WHISPER_MODEL)
+    t0 = time.time()
+    params = model.init_params(wcfg, torch.Generator("cuda").manual_seed(
+        WHISPER_SEED))
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    wpre, wbatch, wlogits = whisper_prefill_phase(params, wcfg)
+    wpre["init_params_s"] = t_init
+    emit(wpre)
+    emit(whisper_decode_phase(params, wcfg, wbatch, wlogits))
+    del params, wbatch, wlogits
     torch.cuda.empty_cache()
     line, base = engine_parity(BATCH)
     emit(line)

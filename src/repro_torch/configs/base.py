@@ -2,11 +2,11 @@
 JAX package's ``configs/base.py``): ``ModelConfig``, ``get_arch`` and
 ``reduced``, the tiny same-family config of the CPU tests.
 
-Only the architectures the port runs are registered (phi4-mini-3.8b, and
-gemma3-1b for the windowed-attention tests and kernel shapes; rwkv6-7b,
-the ssm family; jamba-v0.1-52b, the hybrid family; granite-moe-3b-a800m,
-the moe family); the vlm and audio families wait for the slices that
-port their layers (ROADMAP Queue 1).
+All ten of the JAX package's architectures are registered: the dense
+phi4-mini-3.8b, gemma3-1b, stablelm-12b and starcoder2-15b; the moe
+granite-moe-3b-a800m and qwen3-moe-235b-a22b; rwkv6-7b (ssm);
+jamba-v0.1-52b (hybrid); qwen2-vl-2b (vlm, M-RoPE) and whisper-small
+(audio, encoder-decoder).
 """
 from __future__ import annotations
 
@@ -101,7 +101,8 @@ def _ensure_loaded():
         return
     from repro_torch.configs import (  # noqa: F401
         gemma3_1b, granite_moe_3b_a800m, jamba_v0_1_52b, phi4_mini_3_8b,
-        rwkv6_7b)
+        qwen2_vl_2b, qwen3_moe_235b_a22b, rwkv6_7b, stablelm_12b,
+        starcoder2_15b, whisper_small)
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

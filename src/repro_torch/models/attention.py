@@ -1,12 +1,13 @@
-"""GQA attention layers: the train/prefill path and the decode path with a
-dense KV cache (the port's copy of the JAX package's
-``models/attention.py``, for the dense family).
+"""GQA attention layers: the train/prefill path, the decode path with a
+dense KV cache, and whisper's cross-attention (the port's copy of the
+JAX package's ``models/attention.py``).
 
 Sharding constraints (``constrain``) have no counterpart: the port runs
 on one device.  ``attention`` takes its window as a Python int, so
 backend "cuda" runs the flash_attention kernel (B7) in every layer,
-windowed or global.  The banded and cross-attention paths wait for the
-families that use them (ROADMAP Queue 1, item 12).
+windowed or global, causal or not.  Cross-attention is plain PyTorch, as
+the JAX package computes it outside any kernel.  Banded attention waits
+for the dry run that uses it (ROADMAP Queue 1, G).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import mha
-from repro_torch.models.common import ParamInit, apply_rope
+from repro_torch.models.common import ParamInit, apply_m_rope, apply_rope
 
 
 def init_attention(pi: ParamInit, cfg: ModelConfig) -> dict:
@@ -49,11 +50,9 @@ def _out(o, wo):
 
 
 def _qkv(params, cfg: ModelConfig, x, positions):
-    """x: [B, S, D] -> q [B, Hq, S, hd], k/v [B, Hkv, S, hd], RoPE
-    applied."""
-    if cfg.m_rope:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP Queue "
-                                  "1, item 12: the vlm family)")
+    """x: [B, S, D] -> q [B, Hq, S, hd], k/v [B, Hkv, S, hd], RoPE (or
+    M-RoPE) applied.  With M-RoPE, ``positions`` is [B, S, 3], or [B, S]
+    for text-only decode (t = h = w = pos)."""
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
@@ -61,21 +60,29 @@ def _qkv(params, cfg: ModelConfig, x, positions):
         q = q + params["bq"][None, :, None, :]
         k = k + params["bk"][None, :, None, :]
         v = v + params["bv"][None, :, None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.m_rope:
+        if positions.dim() == 2:
+            positions = positions[..., None].expand(*positions.shape, 3)
+        q = apply_m_rope(q, positions, cfg.m_rope_sections, cfg.rope_theta)
+        k = apply_m_rope(k, positions, cfg.m_rope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def attention(params, cfg: ModelConfig, x, positions, window: int, *,
               causal: bool = True, backend: str = "reference"):
     """Train/prefill self-attention; ``window`` -1 is global.  Backend
-    "reference" is the masked softmax over ``positions``; any other
-    backend goes through ``flash_attention.ops.mha`` (B7), which, as in
-    the JAX package, takes the rows as right-aligned contiguous
-    positions."""
+    "reference" is the masked softmax over ``positions`` (the temporal
+    stream ``positions[..., 0]`` when they are M-RoPE's [B, S, 3]); any
+    other backend goes through ``flash_attention.ops.mha`` (B7), which,
+    as in the JAX package, takes the rows as right-aligned contiguous
+    positions.  The two agree while the positions are contiguous."""
     q, k, v = _qkv(params, cfg, x, positions)
     if backend == "reference":
-        o = _masked_attention(q, k, v, positions, window, causal)
+        pos1d = positions[..., 0] if positions.dim() == 3 else positions
+        o = _masked_attention(q, k, v, pos1d, window, causal)
     else:
         o = mha(q, k, v, causal=causal, window=int(window), backend=backend)
     return _out(o, params["wo"])
@@ -128,3 +135,39 @@ def decode_attention_dense(params, cfg: ModelConfig, x, cache_k, cache_v,
     o = p @ cache_v.to(torch.float32)                       # [B,Hkv,G,hd]
     o = o.reshape(b, cfg.n_heads, 1, hd).to(x.dtype)
     return _out(o, params["wo"]), cache_k, cache_v
+
+
+def init_cross_attention(pi: ParamInit, cfg: ModelConfig) -> dict:
+    return init_attention(pi, cfg)
+
+
+def _softmax_attend(q, k, v):
+    """Unmasked GQA softmax attention in float32: q [B, Hq, Sq, hd], k/v
+    [B, Hkv, Sk, hd] -> [B, Hq, Sq, hd] in q's dtype."""
+    b, hq, sq, hd = q.shape
+    hkv = k.shape[1]
+    qf = (q.to(torch.float32) * hd ** -0.5).reshape(b, hkv, hq // hkv, sq,
+                                                    hd)
+    s = qf @ k.to(torch.float32)[:, :, None].transpose(-1, -2)
+    p = torch.softmax(s, dim=-1)
+    o = p @ v.to(torch.float32)[:, :, None]
+    return o.reshape(b, hq, sq, hd).to(q.dtype)
+
+
+def cross_attention_cached(params, cfg: ModelConfig, x, xk, xv):
+    """Decode-step cross-attention: q from x [B, 1, D]; xk/xv the encoder's
+    precomputed projections [B, Hkv, S_enc, hd] (read-only once written:
+    the classic cold KV of a tiered cache).  No bias, no RoPE."""
+    q = _proj(x, params["wq"])
+    o = _softmax_attend(q, xk, xv).to(x.dtype)
+    return _out(o, params["wo"])
+
+
+def cross_attention(params, cfg: ModelConfig, x, enc_out):
+    """Decoder cross-attention (whisper): queries from x [B, S, D], keys
+    and values from the encoder's output [B, S_enc, D].  No bias, no
+    RoPE."""
+    q = _proj(x, params["wq"])
+    k = _proj(enc_out, params["wk"])
+    v = _proj(enc_out, params["wv"])
+    return _out(_softmax_attend(q, k, v).to(x.dtype), params["wo"])

@@ -114,17 +114,34 @@ def rope_freqs(d_head: int, theta: float = 10000.0, device=None):
     return 1.0 / (theta ** exp)
 
 
-def apply_rope(x, positions, theta: float = 10000.0):
-    """x: [B, H, S, D]; positions: [B, S] (int).  Rotates the pairs
-    (even, odd)."""
-    d = x.shape[-1]
-    inv = rope_freqs(d, theta, x.device)                       # [D/2]
-    ang = positions[:, None, :, None].to(torch.float32) * inv  # [B,1,S,D/2]
+def _rotate(x, ang):
+    """Rotate the pairs (even, odd) of x [B, H, S, D] by ang [B, 1, S,
+    D/2]."""
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., 0::2], x[..., 1::2]
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: [B, H, S, D]; positions: [B, S] (int).  Rotates the pairs
+    (even, odd)."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)             # [D/2]
+    return _rotate(x, positions[:, None, :, None].to(torch.float32) * inv)
+
+
+def apply_m_rope(x, positions3, sections, theta: float = 10000.0):
+    """Qwen2-VL's M-RoPE: x [B, H, S, D]; positions3 [B, S, 3], the (t, h,
+    w) ids.  The rotary pairs split into ``sections`` (t, h, w), each
+    rotated by its own position stream."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                       # [D/2]
+    s0, s1, _ = sections
+    idx = torch.arange(d // 2, device=x.device)
+    sec = torch.where(idx < s0, 0, torch.where(idx < s0 + s1, 1, 2))
+    pos = positions3.to(torch.float32)[..., sec]               # [B,S,D/2]
+    return _rotate(x, pos[:, None] * inv)
 
 
 # --------------------------------------------------------------------- ffn

@@ -1,6 +1,7 @@
 """The model: init / forward / loss / decode for the dense, moe, ssm
-(rwkv6) and hybrid (jamba) families (the port's copy of the JAX
-package's ``models/model.py``).
+(rwkv6), hybrid (jamba), vlm (qwen2-vl, M-RoPE) and audio (whisper,
+encoder-decoder) families (the port's copy of the JAX package's
+``models/model.py``).
 
 Parameters are a dict: ``embed`` [V, D], ``final_norm``, ``lm_head`` when
 embeddings are untied, and ``blocks``, a list with one dict per layer in
@@ -10,15 +11,18 @@ channel mix is its ffn), ``ffn`` (SwiGLU, or the MoE router and
 experts), ``ln1``, ``ln2``.  ``params_from_numpy`` carries a JAX
 parameter pytree across: stacked [L, ...] blocks, or the hybrid
 family's superblocks ``blocks["pos{i}"]`` stacked [L / period, ...].
-The JAX package scans its layers (the hybrid family by superblocks of
-its 8-layer pattern); here the layers are a Python loop and each window
-is a Python int (``cfg.layer_windows``; -1 in the hybrid family, as
-there), so backend "cuda" runs the flash_attention kernel (B7) in every
-attention layer, the rwkv6_scan kernel (B8) in every rwkv layer and the
-mamba_scan kernel (B9) in every mamba layer.
+The audio family adds ``enc_blocks`` (stacked [L_enc, ...] in JAX),
+``enc_final_norm``, and in each decoder block ``cross`` (wq/wk/wv/wo)
+and ``ln_cross``.  The JAX package scans its layers (the hybrid family
+by superblocks of its 8-layer pattern); here the layers are a Python
+loop and each window is a Python int (``cfg.layer_windows``; -1 in the
+hybrid and audio families, as there), so backend "cuda" runs the
+flash_attention kernel (B7) in every attention layer (whisper's
+encoder layers non-causal), the rwkv6_scan kernel (B8) in every rwkv
+layer and the mamba_scan kernel (B9) in every mamba layer.
 
-The vlm and audio families raise ``NotImplementedError`` naming their
-ROADMAP item.
+``banded_local`` (the dry run's banded attention) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,19 +38,19 @@ from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (ParamInit, ffn, init_ffn, init_norm,
                                        norm)
 
-_TODO = {
-    "vlm": "ROADMAP Queue 1 item 12: M-RoPE (qwen2-vl)",
-    "audio": "ROADMAP Queue 1 item 12: encoder-decoder (whisper)",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families this slice of the port does not run."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.m_rope \
-            or cfg.embed_inputs:
+    """Raise for what the port does not run: an unknown family, and the
+    banded attention of ``banded_local``."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: unknown family "
+                                  f"{cfg.family!r}")
+    if cfg.banded_local:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported yet: "
-            f"{_TODO.get(cfg.family, _TODO['vlm'])}")
+            f"{cfg.name}: banded_local attention is not ported yet "
+            "(ROADMAP Queue 1, G: it comes with the dry run)")
 
 
 def layer_plan(cfg: ModelConfig) -> list:
@@ -95,15 +99,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params["final_norm"] = init_norm(pi, cfg.d_model, cfg.norm_kind)
     params["blocks"] = [_init_block(pi, cfg, kind, use_moe)
                         for kind, use_moe, _ in layer_plan(cfg)]
+    if cfg.family == "audio":
+        params["enc_blocks"] = [_init_block(pi, cfg, "attn", False)
+                                for _ in range(cfg.enc_layers)]
+        for blk in params["blocks"]:
+            blk["cross"] = attn_mod.init_cross_attention(pi, cfg)
+            blk["ln_cross"] = init_norm(pi, cfg.d_model, cfg.norm_kind)
+        params["enc_final_norm"] = init_norm(pi, cfg.d_model, cfg.norm_kind)
     return params
 
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
-    """A JAX parameter pytree (numpy leaves; ``blocks`` stacked [L, ...],
-    or for the hybrid family ``blocks["pos{i}"]`` stacked [L / period,
-    ...]) -> the port's parameters on ``device`` (None: the card), one
-    dict per layer (layer ``blk * period + i`` from ``pos{i}[blk]``).
-    Copies every leaf."""
+    """A JAX parameter pytree (numpy leaves; ``blocks`` stacked [L, ...]
+    and the audio family's ``enc_blocks`` stacked [L_enc, ...], or for
+    the hybrid family ``blocks["pos{i}"]`` stacked [L / period, ...]) ->
+    the port's parameters on ``device`` (None: the card), one dict per
+    layer (layer ``blk * period + i`` from ``pos{i}[blk]``).  Copies
+    every leaf."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -117,7 +129,11 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
             return {k: layer(v, i) for k, v in x.items()}
         return torch.from_numpy(np.array(x[i], copy=True)).to(dev)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
+    out = {k: conv(v) for k, v in tree.items()
+           if k not in ("blocks", "enc_blocks")}
+    if cfg.family == "audio":
+        out["enc_blocks"] = [layer(tree["enc_blocks"], i)
+                             for i in range(cfg.enc_layers)]
     if cfg.family == "hybrid":
         period = len(cfg.pattern)
         out["blocks"] = [layer(tree["blocks"][f"pos{l % period}"],
@@ -156,6 +172,10 @@ def _block_apply(cfg: ModelConfig, p, x, positions, window: int,
     return x + out, extras
 
 
+def _arange_positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
 def _lm_logits(cfg: ModelConfig, params, x):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head
@@ -163,17 +183,24 @@ def _lm_logits(cfg: ModelConfig, params, x):
 
 def forward(cfg: ModelConfig, params, batch: dict, *,
             backend: str = "reference"):
-    """batch: ``tokens`` [B, S] (and optionally ``positions`` [B, S]; the
-    mamba and rwkv layers read none).  Returns (logits [B, S, V], aux),
-    aux the float32 sum of the MoE layers' load-balancing losses (zero
-    without MoE).  Evaluation only: no gradient is kept."""
+    """batch: ``tokens`` [B, S], or ``embeds`` [B, S, D] (the vlm stub
+    frontend's patch embeddings), and optionally ``positions`` [B, S]
+    (M-RoPE: [B, S, 3]; the mamba and rwkv layers read none); the audio
+    family takes ``enc_embeds`` [B, S_enc, D] and decoder ``tokens``.
+    Returns (logits [B, S, V], aux), aux the float32 sum of the MoE
+    layers' load-balancing losses (zero without MoE).  Evaluation only:
+    no gradient is kept."""
     check_supported(cfg)
+    if cfg.family == "audio":
+        return _forward_encdec(cfg, params, batch, backend)
     with torch.no_grad():
-        x = params["embed"][batch["tokens"].to(torch.int64)]
-        b, s = x.shape[:2]
+        if "embeds" in batch:
+            x = batch["embeds"].to(params["embed"].dtype)
+        else:
+            x = params["embed"][batch["tokens"].to(torch.int64)]
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+            positions = _arange_positions(*x.shape[:2], x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p, (kind, use_moe, window) in zip(params["blocks"],
                                               layer_plan(cfg)):
@@ -184,6 +211,55 @@ def forward(cfg: ModelConfig, params, batch: dict, *,
         x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
         logits = _lm_logits(cfg, params, x)
     return logits, aux
+
+
+def _enc_block(cfg: ModelConfig, blk, x, pos, backend: str):
+    """One whisper encoder block: non-causal self-attention (B7 on
+    backend "cuda"), then the MLP."""
+    h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+    x = x + attn_mod.attention(blk["mixer"], cfg, h, pos, -1, causal=False,
+                               backend=backend)
+    h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
+    return x + ffn(blk["ffn"], h, cfg.ffn_kind, cfg.act)
+
+
+def _dec_block(cfg: ModelConfig, blk, x, pos, enc, backend: str):
+    """One whisper decoder block: causal self-attention (B7 on backend
+    "cuda"), cross-attention to the encoder's output ``enc``, the MLP."""
+    h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+    x = x + attn_mod.attention(blk["mixer"], cfg, h, pos, -1,
+                               backend=backend)
+    h = norm(blk["ln_cross"], x, cfg.norm_kind, cfg.norm_eps)
+    x = x + attn_mod.cross_attention(blk["cross"], cfg, h, enc)
+    h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
+    return x + ffn(blk["ffn"], h, cfg.ffn_kind, cfg.act)
+
+
+def _encode(cfg: ModelConfig, params, enc_embeds, backend: str):
+    """Whisper's encoder over the stub frontend's frame embeddings
+    [B, S_enc, D]: every encoder block, then ``enc_final_norm``."""
+    with torch.no_grad():
+        x = enc_embeds.to(params["embed"].dtype)
+        pos = _arange_positions(*x.shape[:2], x.device)
+        for blk in params["enc_blocks"]:
+            x = _enc_block(cfg, blk, x, pos, backend)
+        return norm(params["enc_final_norm"], x, cfg.norm_kind,
+                    cfg.norm_eps)
+
+
+def _forward_encdec(cfg: ModelConfig, params, batch, backend: str):
+    """Whisper: the encoder (``_encode``), then the causal decoder over
+    ``batch["tokens"]`` with cross-attention to the encoder's output in
+    every block.  aux is zero."""
+    enc = _encode(cfg, params, batch["enc_embeds"], backend)
+    with torch.no_grad():
+        x = params["embed"][batch["tokens"].to(torch.int64)]
+        pos = _arange_positions(*x.shape[:2], x.device)
+        for blk in params["blocks"]:
+            x = _dec_block(cfg, blk, x, pos, enc, backend)
+        x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        return _lm_logits(cfg, params, x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, backend: str = "reference"):
@@ -207,7 +283,11 @@ def loss_fn(cfg: ModelConfig, params, batch, *, backend: str = "reference"):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Decode cache on ``device`` (None: the card), in the JAX package's
-    layouts.  Dense and moe: {"k", "v"} [L, B, Hkv, S_max, hd]; ssm:
+    layouts.  Dense, moe and vlm: {"k", "v"} [L, B, Hkv, S_max, hd];
+    audio: those of its decoder and {"cross_k", "cross_v"} [L, B, Hkv,
+    enc_seq, hd], zeros, which nothing in the package fills (as in the
+    JAX package: the caller writes each layer's encoder projections);
+    ssm:
     {"wkv"} [L, B, H, hd, hd] float32 and {"last_tm", "last_cm"} [L, B, D]
     in ``dtype`` (``max_seq`` unused); hybrid, per superblock of the
     pattern (nb = L / period): {"k", "v"} [nb, n_attn, B, Hkv, S_max,
@@ -233,7 +313,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                 "ssm_h": zeros((nb, n_mamba, batch, di, cfg.ssm_state),
                                torch.float32),
                 "conv": zeros((nb, n_mamba, batch, cfg.ssm_conv - 1, di))}
-    return {"k": zeros((cfg.n_layers, *kv)), "v": zeros((cfg.n_layers, *kv))}
+    cache = {"k": zeros((cfg.n_layers, *kv)),
+             "v": zeros((cfg.n_layers, *kv))}
+    if cfg.family == "audio":
+        xkv = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.enc_seq,
+               cfg.head_dim)
+        cache["cross_k"], cache["cross_v"] = zeros(xkv), zeros(xkv)
+    return cache
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,
@@ -270,6 +356,11 @@ def _decode_dense(cfg: ModelConfig, params, cache, tokens, pos):
                 blk["mixer"], cfg, h, cache["k"][i], cache["v"][i], pos,
                 window)
             x = x + mix
+            if cfg.family == "audio":    # against the encoder's K/V
+                h = norm(blk["ln_cross"], x, cfg.norm_kind, cfg.norm_eps)
+                x = x + attn_mod.cross_attention_cached(
+                    blk["cross"], cfg, h, cache["cross_k"][i],
+                    cache["cross_v"][i])
             h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
             x = x + _ffn_or_moe(cfg, blk, h, use_moe)
         x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)

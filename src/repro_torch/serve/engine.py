@@ -10,7 +10,10 @@ engine's maintenance plane runs rate-limit, watermark and §5.3 policy
 compactions (approx-MSC scoring: B2; each compaction's Movement replayed
 on the page pools: B3/B5/B4), and after it one quantum drains when
 ``compaction_quantum > 0``.  One page pool serves all attention layers.
-Uniform-attention families only (dense and moe), as in the JAX package.
+Uniform-attention families only (dense, moe and vlm: qwen2-vl's decode
+rotates by M-RoPE with t = h = w = pos), as the JAX package's docstring
+names them.  The JAX engine would also take whisper and skip its
+cross-attention without a word; the port refuses the audio family.
 
 The JAX package fuses a tick into one jitted dispatch; here it is eager
 PyTorch, and its host reads are counted in ``engine.HOST_READS``: the
@@ -157,18 +160,19 @@ class ServeEngine:
     Request orchestration (admission, prompt feeding, retirement) is host
     Python; the device work of a tick is ``_tick``.  ``device`` None means
     the card (raises without one); ``params`` must lie on that device.
-    Serves the uniform-attention families (dense, moe), as the JAX
-    package's engine does; raises for the others."""
+    Serves the uniform-attention families (dense, moe, vlm), as the JAX
+    package's engine does; raises for the others (ssm, hybrid, and audio,
+    whose cross-attention a paged decode step has no place for)."""
 
     def __init__(self, mcfg: ModelConfig, kv_cfg: PagedKVConfig, params,
                  seed: int = 0, pol_cfg: policy.PolicyConfig | None = None,
                  backend: str = "reference", compaction_quantum: int = 0,
                  device=None):
         model_mod.check_supported(mcfg)
-        if mcfg.family not in ("dense", "moe"):
+        if mcfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
                 f"ServeEngine serves uniform-attention families (dense, "
-                f"moe); {mcfg.name} is {mcfg.family}")
+                f"moe, vlm); {mcfg.name} is {mcfg.family}")
         self.device = resolve_device(device)
         self.mcfg = mcfg
         self.cfg = kv_cfg

@@ -1,7 +1,8 @@
 """Kernels B1 (clock_update), B2 (msc_score), B3-B5 (the tier_compact
 row movers select_gather_rows, scatter_rows, gather_rows), B6
 (paged_attention), B7 (flash_attention), B8 (rwkv6_scan) and B9
-(mamba_scan) of the port.
+(mamba_scan) of the port; on the card also the vlm and audio forwards
+and a short vlm serve.
 
 On the CPU: each wrapper takes its plain PyTorch version, held against
 the JAX package's kernel wrappers (``backend="reference"`` and the Pallas
@@ -690,6 +691,10 @@ def test_attention_wrappers_refuse_cpu_tensors():
     (1, 2, 1, 70, 70, 256, True, -1),        # head dim 256, 140 rows
     (2, 8, 2, 200, 200, 256, True, 48),      # head dim 256, window, ragged
     (1, 2, 1, 33, 33, 20, True, -1),         # rows not 16-byte aligned
+    (2, 12, 12, 1500, 1500, 64, False, -1),  # whisper-small's encoder:
+                                             # 1,500 rows off the 64 tile
+    (2, 12, 12, 448, 448, 64, True, -1),     # whisper-small's decoder
+    (2, 12, 2, 2048, 2048, 128, True, -1),   # qwen2-vl-2b: GQA group 6
 ])
 def test_flash_attention_kernel_on_card(b, hq, hkv, sq, sk, d, causal, win,
                                         dtype):
@@ -1177,6 +1182,80 @@ def test_hybrid_forward_on_card():
                               torch.zeros(2, dtype=torch.int32,
                                           device="cuda"))
     assert float((lg - got[:, 0]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_vlm_and_whisper_forward_on_card():
+    """Reduced qwen2-vl (patch embeddings, stub M-RoPE positions) and
+    reduced whisper on the card: ``forward`` on backend "cuda" (B7 in
+    every attention layer, whisper's encoder layers non-causal) against
+    "reference", atol 1e-4 on the logits with equal argmax."""
+    _needs_card()
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models import model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(7)
+    for name in ("qwen2-vl-2b", "whisper-small"):
+        cfg = reduced(get_arch(name))
+        params = model.init_params(cfg, torch.Generator("cuda").manual_seed(8))
+        toks = torch.randint(0, cfg.vocab, (2, 45), generator=gen,
+                             device="cuda")
+        if cfg.family == "audio":
+            batch = {"tokens": toks, "enc_embeds": 0.02 * torch.randn(
+                (2, cfg.enc_seq, cfg.d_model), generator=gen, device="cuda")}
+            n_attn = cfg.enc_layers + cfg.n_layers
+        else:
+            tt = torch.arange(45, device="cuda")
+            batch = {"embeds": 0.02 * torch.randn(
+                (2, 45, cfg.d_model), generator=gen, device="cuda"),
+                "positions": torch.stack([tt, tt % 7, tt % 5], -1)[None]
+                .expand(2, 45, 3)}
+            n_attn = cfg.n_layers
+        n0 = kernels.LAUNCHES["flash_attention"]
+        got, _ = model.forward(cfg, params, batch, backend="cuda")
+        assert kernels.LAUNCHES["flash_attention"] == n0 + n_attn, name
+        want, _ = model.forward(cfg, params, batch, backend="reference")
+        assert float((got - want).abs().max()) <= 1e-4, name
+        assert torch.equal(got.argmax(-1), want.argmax(-1)), name
+
+
+@pytest.mark.cuda
+def test_vlm_serve_on_card():
+    """A short ``ServeEngine`` run of reduced qwen2-vl on the card, 4
+    requests of 40 + 8 tokens through a fast pool that holds fewer pages
+    than are live: backend "cuda" (B1-B5 launch) and "reference" give the
+    same tokens, every request retires, pages are demoted."""
+    _needs_card()
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.core.paged_kv import PagedKVConfig
+    from repro_torch.models import model
+    from repro_torch.serve.engine import Request, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_arch("qwen2-vl-2b"))
+    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(9))
+    kv = PagedKVConfig(n_layers=cfg.n_layers, kv_heads=cfg.n_kv_heads,
+                       head_dim=cfg.head_dim, page_tokens=4, fast_pages=16,
+                       slow_pages=1024, max_seqs=4, max_pages_per_seq=64,
+                       topk_pages=4, recent_pages=2, dtype="bfloat16")
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(1, cfg.vocab, 40).tolist() for _ in range(4)]
+    outs = {}
+    for backend in ("cuda", "reference"):
+        eng = ServeEngine(cfg, kv, params, backend=backend)
+        reqs = [Request(rid=i, prompt=p, max_new=8)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_launches()
+        eng.run(max_ticks=400)
+        assert all(len(r.out) == 8 for r in reqs)
+        assert eng.counters["demoted"] > 0
+        launched = {k for k, n in kernels.LAUNCHES.items() if n}
+        want = {"clock_update", "msc_score", "select_gather_rows",
+                "scatter_rows", "gather_rows"} if backend == "cuda" else set()
+        assert launched == want, backend
+        outs[backend] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["reference"]
 
 
 # ----------------------------------------------------- N-tier storage plane

@@ -1,5 +1,5 @@
-"""The port's dense, ssm (rwkv6), hybrid (jamba) and moe (granite)
-models (``models/common.py``, ``attention.py``, ``rwkv6.py``,
+"""The port's dense, ssm (rwkv6), hybrid (jamba) and moe (granite,
+qwen3-moe at top 8) models, and the configs of all ten architectures (``models/common.py``, ``attention.py``, ``rwkv6.py``,
 ``mamba.py``, ``moe.py``, ``model.py``) against the JAX package on the
 CPU, at reduced sizes.
 
@@ -63,6 +63,31 @@ def test_configs_match_the_jax_package():
                       "vocab", "head_dim", "layer_windows", "rope_theta",
                       "norm_eps", "tie_embeddings", "ffn_kind", "act"):
                 assert getattr(a, f) == getattr(b, f), (name, f)
+
+
+ALL_ARCHS = ["gemma3-1b", "granite-moe-3b-a800m", "jamba-v0.1-52b",
+             "phi4-mini-3.8b", "qwen2-vl-2b", "qwen3-moe-235b-a22b",
+             "rwkv6-7b", "stablelm-12b", "starcoder2-15b", "whisper-small"]
+
+
+def test_the_ten_archs_are_registered():
+    from repro.configs.base import all_archs as j_all_archs
+    from repro_torch.configs.base import all_archs
+    assert sorted(all_archs()) == sorted(j_all_archs()) == ALL_ARCHS
+
+
+@pytest.mark.parametrize("name", ALL_ARCHS)
+def test_every_config_field_matches_the_jax_package(name):
+    """Every field of the published config and of ``reduced``'s, and the
+    derived head dim, layer kinds and windows, equal the JAX package's."""
+    import dataclasses
+    for a, b in ((j_get_arch(name), get_arch(name)), _cfgs(name)):
+        assert [f.name for f in dataclasses.fields(a)] == \
+            [f.name for f in dataclasses.fields(b)]
+        for f in dataclasses.fields(a):
+            assert getattr(a, f.name) == getattr(b, f.name), (name, f.name)
+        for f in ("head_dim", "layer_types", "layer_windows"):
+            assert getattr(a, f) == getattr(b, f), (name, f)
 
 
 @pytest.mark.parametrize("kind", ["rms", "ln"])
@@ -232,29 +257,42 @@ def test_decode_step(name):
 
 
 @pytest.mark.parametrize("name", ARCHS + ["jamba-v0.1-52b",
-                                          "granite-moe-3b-a800m"])
+                                          "granite-moe-3b-a800m",
+                                          "qwen2-vl-2b", "whisper-small"])
 def test_reference_fault_pallas_forward_raises(name):
     """A fault of the JAX package (ROADMAP Queue 3): its dense forward
     scans the layers with the window as a traced scan input, and
     ``attention`` calls ``mha(..., window=int(window))`` on that tracer,
     so ``forward(backend="pallas")`` raises for every reduced dense
     config; the moe family takes the same scan, and the hybrid scan
-    passes the attention layer ``jnp.int32(-1)``, traced there too.  The
-    port's layer loop keeps each window a Python int and runs the kernel
-    path (``test_forward_and_loss``, ``test_hybrid_forward_and_loss``,
-    ``test_granite_forward_and_loss``)."""
+    passes the attention layer ``jnp.int32(-1)``, traced there too; the
+    vlm family takes the dense scan, and the audio family's encoder and
+    decoder scans pass ``jnp.int32(-1)`` as well.  The port's layer loop
+    keeps each window a Python int and runs the kernel path
+    (``test_forward_and_loss``, ``test_hybrid_forward_and_loss``,
+    ``test_granite_forward_and_loss``, ``test_vlm_forward_and_loss``,
+    ``test_whisper_forward_and_loss``)."""
     jcfg, _, jp, _ = _params(name)
-    toks = jnp.zeros((1, 8), jnp.int32)
+    batch = {"tokens": jnp.zeros((1, 8), jnp.int32)}
+    if jcfg.family == "audio":
+        batch["enc_embeds"] = jnp.zeros((1, jcfg.enc_seq, jcfg.d_model))
     with pytest.raises(jax.errors.ConcretizationTypeError):
-        JM.forward(jcfg, jp, {"tokens": toks}, backend="pallas")
+        JM.forward(jcfg, jp, batch, backend="pallas")
 
 
-def test_unported_families_raise():
-    jcfg = get_arch("phi4-mini-3.8b")
-    for cfg in (jcfg.replace(family="vlm"), jcfg.replace(m_rope=True),
-                jcfg.replace(family="audio")):
+def test_banded_local_raises():
+    """Banded attention (``banded_local``, set only by the JAX package's
+    dry run) is not ported: every entry point that takes a config
+    raises, naming its ROADMAP item; the other fields pass."""
+    cfg = reduced(get_arch("gemma3-1b"))
+    model.check_supported(cfg)
+    banded = cfg.replace(banded_local=True)
+    for fn in (lambda: model.init_params(banded, torch.Generator(),
+                                         device="cpu"),
+               lambda: model.init_cache(banded, 1, 8, device="cpu"),
+               lambda: model.forward(banded, {}, {})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.init_params(reduced(cfg), torch.Generator(), device="cpu")
+            fn()
 
 
 # ------------------------------------------------------------------ rwkv6
@@ -827,3 +865,26 @@ def test_granite_decode_step(granite):
         assert np.array_equal(tl.argmax(-1).numpy(), jl.argmax(-1))
         for k in ("k", "v"):
             _close(tc[k], jc[k], msg=f"{k} step {i}")
+
+
+QWEN3 = "qwen3-moe-235b-a22b"
+
+
+@pytest.mark.parametrize("dispatch", ["global", "rowwise"])
+def test_moe_ffn_top8_matches_jax(dispatch):
+    """Known difference D4 held: the port adds a token's k expert outputs
+    in choice order, the JAX package scatter-adds them in expert order.
+    At qwen3-moe's published top 8 (reduced, with 16 experts so that 8
+    of them are a choice): outputs within ``MOE_TOL``, ``aux_loss`` atol
+    1e-6, ``dropped`` equal, each token's experts the JAX routing's."""
+    jcfg, cfg, tree = _moe_tree(QWEN3, 7, n_experts=16, n_experts_padded=16,
+                                top_k=8)
+    assert cfg.top_k == 8 and cfg.n_experts == 16
+    x = np.random.default_rng(15).normal(size=(2, 16, cfg.d_model)) \
+        .astype(np.float32)
+    want, wx, got, gx = _moe_both(jcfg, cfg, tree, x, dispatch)
+    _moe_close(got, want, dispatch)
+    _close(gx["aux_loss"], wx["aux_loss"], 1e-6)
+    assert float(gx["dropped"]) == float(wx["dropped"])
+    assert np.array_equal(gx["experts"].numpy(),
+                          _jax_top_e(jcfg, tree["router"], x))

@@ -5,7 +5,8 @@ Tolerances: every ``paged_kv`` function, fed the same inputs, leaves a
 state bit-equal to the JAX package's (pools, summaries with their
 +-finfo.max sentinels, tier, tracker, counters) and returns bit-equal
 selections and gathers.  ``ServeEngine`` on ``reduced(phi4-mini-3.8b)``
-with the configs of tests/test_serve.py: generated tokens, every integer
+(and on reduced granite and qwen2-vl) with the configs of
+tests/test_serve.py: generated tokens, every integer
 leaf of the engine state, the counters and the obs histograms equal; the
 page pools and summaries equal in placement (which entries are unwritten
 zeros or sentinels) and within atol 1e-5 in value -- the K/V written
@@ -239,9 +240,9 @@ SERVE_CASES = {"all_requests": (48, 4, 8, 6, 24, 12, 0),
                "memory_pressure_q4": (16, 4, 4, 4, 40, 8, 4)}
 
 
-def _serve_kv(C, fast_pages, max_seqs, topk):
-    return C(n_layers=JMCFG.n_layers, kv_heads=JMCFG.n_kv_heads,
-             head_dim=JMCFG.head_dim, page_tokens=4, fast_pages=fast_pages,
+def _serve_kv(C, fast_pages, max_seqs, topk, mcfg=JMCFG):
+    return C(n_layers=mcfg.n_layers, kv_heads=mcfg.n_kv_heads,
+             head_dim=mcfg.head_dim, page_tokens=4, fast_pages=fast_pages,
              slow_pages=1024, max_seqs=max_seqs, max_pages_per_seq=64,
              topk_pages=topk, recent_pages=2, dtype="float32")
 
@@ -367,6 +368,73 @@ def test_serve_engine_moe_matches_jax(backend):
     _assert_engine_states(jstate, engine.state_to_numpy(eng.est))
 
 
+VLM = "qwen2-vl-2b"
+
+
+@functools.lru_cache(maxsize=None)
+def _vlm_run():
+    """The JAX engine serving reduced qwen2-vl (M-RoPE with t = h = w =
+    pos in the paged decode, biases on q/k/v seeded away from their zero
+    init) through the memory_pressure case."""
+    fp, ms, topk, n, plen, mnew, q = SERVE_CASES["memory_pressure"]
+    jcfg = j_reduced(j_get_arch(VLM))
+    tree = jax.tree.map(np.asarray,
+                        JM.init_params(jcfg, jax.random.PRNGKey(6))[0])
+    rng = np.random.default_rng(34)
+    mixer = tree["blocks"]["mixer"]
+    for k in ("bq", "bk", "bv"):
+        mixer[k] = (0.1 * rng.normal(size=mixer[k].shape)).astype(np.float32)
+    eng = jserve.ServeEngine(jcfg, _serve_kv(jpk.PagedKVConfig, fp, ms,
+                                             topk, jcfg),
+                             jax.tree.map(jnp.asarray, tree))
+    reqs = [jserve.Request(rid=i, prompt=p, max_new=mnew)
+            for i, p in enumerate(_prompts(n, plen))]
+    for r in reqs:
+        eng.submit(r)
+    ticks = eng.run(max_ticks=400)
+    return (tree, [r.out for r in reqs], jax.device_get(eng.est),
+            eng.counters, eng.obs_snapshot(), ticks)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_serve_engine_vlm_matches_jax(backend):
+    """``ServeEngine`` over reduced qwen2-vl (``paged_decode_step`` reaches
+    ``_qkv``'s M-RoPE branch with 2-D positions) against the JAX
+    package's: the same tokens, ticks, counters, engine leaves
+    (``_assert_engine_states``) and obs histograms; pages are demoted."""
+    fp, ms, topk, n, plen, mnew, q = SERVE_CASES["memory_pressure"]
+    tree, jtokens, jstate, jctr, jobs, jticks = _vlm_run()
+    cfg = reduced(get_arch(VLM))
+    eng = ServeEngine(cfg, _serve_kv(paged_kv.PagedKVConfig, fp, ms, topk,
+                                     cfg),
+                      model.params_from_numpy(cfg, tree, device="cpu"),
+                      backend=backend, device="cpu")
+    reqs = [Request(rid=i, prompt=p, max_new=mnew)
+            for i, p in enumerate(_prompts(n, plen))]
+    for r in reqs:
+        eng.submit(r)
+    assert eng.run(max_ticks=400) == jticks
+    assert [r.out for r in reqs] == jtokens
+    assert all(len(r.out) == mnew for r in reqs)
+    assert eng.counters == jctr
+    assert jctr["compactions"] > 0 and jctr["demoted"] > 0
+    _assert_engine_states(jstate, engine.state_to_numpy(eng.est))
+    obs = eng.obs_snapshot()
+    for k in ("hist", "hist_sum", "timeline"):
+        assert_trees_equal(jobs[k], obs[k])
+
+
+def test_serve_engine_refuses_audio():
+    """Whisper's decode needs its cross-attention, for which the paged
+    decode step has no place: the engine raises (the JAX engine would
+    serve it and skip the cross-attention without a word; ROADMAP)."""
+    cfg = reduced(get_arch("whisper-small"))
+    params = model.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="uniform-attention"):
+        ServeEngine(cfg, paged_kv.PagedKVConfig(**_kv_kw()), params,
+                    device="cpu")
+
+
 def test_serve_engine_refuses_hybrid():
     """The engine serves uniform-attention families only, as the JAX
     package's does: a hybrid (jamba) model raises."""
@@ -412,13 +480,23 @@ def test_state_from_numpy_takes_paged_kv():
 def _defaults():
     cfg = paged_kv.PagedKVConfig(**_kv_kw())
     gen = torch.Generator()
+    vlm, audio = reduced(get_arch(VLM)), reduced(get_arch("whisper-small"))
     return {
         "ServeEngine": lambda: ServeEngine(
             MCFG, cfg, model.init_params(MCFG, gen, device="cpu")),
+        "ServeEngine(vlm)": lambda: ServeEngine(
+            vlm, cfg, model.init_params(vlm, gen, device="cpu")),
         "model.init_params": lambda: model.init_params(MCFG, gen),
+        "model.init_params(vlm)": lambda: model.init_params(vlm, gen),
+        "model.init_params(audio)": lambda: model.init_params(audio, gen),
         "model.init_cache": lambda: model.init_cache(MCFG, 1, 8),
+        "model.init_cache(audio)": lambda: model.init_cache(audio, 1, 8),
         "model.params_from_numpy": lambda: model.params_from_numpy(
             MCFG, jax.tree.map(np.asarray, _jax_params())),
+        "model.params_from_numpy(audio)": lambda: model.params_from_numpy(
+            audio, jax.tree.map(np.asarray, JM.init_params(
+                j_reduced(j_get_arch("whisper-small")),
+                jax.random.PRNGKey(0))[0])),
         "paged_kv.init": lambda: paged_kv.init(cfg),
     }
 

@@ -98,7 +98,7 @@ def checks(cs, np):
             params = model.init_params(
                 cfg, torch.Generator("cuda").manual_seed(cs.MODEL_SEED))
             eng, _ = cs.serve_engine(params, cfg, cs.SERVE_SEED, "cuda")
-            while eng.stats["steps"] <= cs.SERVE_B6_AT:
+            while eng.stats["steps"] <= cs.SERVE_SHAPE.b6_at:
                 eng.step()
             engine.append(eng)
         return [cs._check_paged_attention(engine[0], seed)]
