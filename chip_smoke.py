@@ -80,6 +80,16 @@ Phases, each printed as one JSON line:
                  output (the JAX package leaves it zero), a teacher-forced
                  prefix held against the forward's logits, then greedy
                  tokens, ms a token
+  2k. train   -- gemma3-1b at full width (float32 weights from a seed)
+                 trained TRAIN_STEPS AdamW steps through
+                 repro_torch.launch.train.main on backend "reference"
+                 with remat: finite, falling losses, no kernel launched,
+                 step ms, tokens/s, model TFLOP/s, peak memory, a
+                 profiled step's busy share; gates: float32 gradients
+                 against float64 (TRAIN_GRAD_LAYERS layers), micro-batch
+                 equivalence, checkpoint restart, the error-feedback
+                 identity of compressed steps, the refusal of kernels
+                 under autograd
   3. parity   -- the engine at paper_tier_config(scale=1) on one op
                  stream: backend "cuda" on the card vs "reference" on the
                  card and on the CPU; state, counters and per-op results
@@ -172,8 +182,12 @@ SCALE = FULL_SCALE // 128
 SEGMENT = 64                   # client batches per YCSB segment at SCALE
 # The full-size state is preloaded with a fixed key count: past the fast
 # tier's 0.98 high watermark (10,961,113 keys), so compactions run, and
-# well inside the time limit (a 50% preload does not fit it).
+# well inside the time limit (a 50% preload does not fit it).  The
+# preload is set-up, loaded in puts of FULL_PRELOAD_BATCH keys: a step's
+# host time hardly grows with its batch, and 2,688 client batches took
+# 31-53 s a leg; the segments run at the client batch.
 FULL_PRELOAD_KEYS = 2688 * BATCH          # 11,010,048 keys
+FULL_PRELOAD_BATCH = 8 * BATCH
 FULL_SEGMENT = 16
 FULL_PROFILE_STEPS = 2         # profiler bookkeeping grows per traced op
 DRAIN_Q = 64                   # compaction_quantum of the quantized phases
@@ -184,12 +198,14 @@ DRAIN_Q = 64                   # compaction_quantum of the quantized phases
 # rows keep free slots below the batch, and from the 24th batch on the
 # rate limiter runs max_rounds (256) compactions every step (PERF.md).
 EMBED_VOCAB, EMBED_DIM, EMBED_FAST_ROWS = 262_144, 1_152, 8_192
-EMBED_TOKENS, EMBED_STEPS = 2048, 32
+EMBED_TOKENS, EMBED_STEPS = 2048, 16
 # The same store at fast_rows / 2 tokens a batch, with the msc_score
 # kernel's choices held against the plain scorer's at every compaction:
-# long enough to pass the rate limiter's thrash regime (batch 24 on) and
-# the first tie the two scorers break apart (batch 38; PERF.md).
-EMBED_DIAG_TOKENS, EMBED_DIAG_STEPS = 4096, 39
+# one batch into the rate limiter's thrash regime (batch 24 on, 256
+# compactions a batch).  The first tie the two scorers break apart comes
+# at batch 38 (PERF.md); those 14 more batches of thrash took a quarter
+# of the whole smoke, so the smoke stops short of them.
+EMBED_DIAG_TOKENS, EMBED_DIAG_STEPS = 4096, 25
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 # H100 SXM special function units: 16 exponentials a clock an SM (CUDA C
 # programming guide, throughput of exp2 for compute capability 9.0), 132
@@ -215,10 +231,12 @@ WHISPER_ENC_ATTN, QWEN2VL_ATTN = (2, 12, 12, 1500, 64), (2, 12, 2, 2048, 128)
 # Serving: two waves of requests through the 16 slots of serve_kv_config
 # (requests, prompt and new tokens each, the first of SERVE_TRACE_TICKS
 # profiled ticks of the cuda leg, the tick whose live pools B6 is checked
-# on)
+# on).  The 16 live slots of 128 + 32 tokens hold 160 pages, past the
+# fast pool's 128, so pages are demoted; prompts of 256 tokens doubled
+# the phase's 320 ticks a leg for no further path.
 ServeShape = collections.namedtuple(
     "ServeShape", "requests prompt new trace_at b6_at")
-SERVE_SHAPE = ServeShape(24, 256, 32, 100, 200)
+SERVE_SHAPE = ServeShape(24, 128, 32, 100, 200)
 SERVE_TRACE_TICKS = 4
 # rwkv6-7b at its published width (src/repro/configs/rwkv6_7b.py,
 # arXiv:2404.05892: 32 layers, d 4,096, 64 heads of 64, channel mix
@@ -293,12 +311,41 @@ WHISPER_TOKENS, WHISPER_FORCED, WHISPER_NEW = 448, 64, 32
 # tests' 2e-5), and the whole block on "cuda" against "reference" from
 # the same input (relative, Frobenius norm).
 ATTN_CORE_TOL, BLOCK_TOL = 2e-5, 1e-5
+# Training: gemma3-1b at its published width (src/repro/configs/
+# gemma3_1b.py, hf:google/gemma-3-1b-pt: 26 layers, d 1,152, 4 heads / 1
+# KV of 256, d_ff 6,912, vocab 262,144 tied, 5 local (window 512) : 1
+# global), float32 weights from TRAIN_SEED (1.00 B parameters; params,
+# grads and both moments 16 GB), through repro_torch.launch.train.main:
+# TRAIN_STEPS AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens (the window-
+# 512 layers mask), backend "reference", remat on; step TRAIN_PROFILE_STEP
+# under the profiler.  Gates: the float32 gradients against float64 at
+# TRAIN_GRAD_LAYERS layers (batch 1 x TRAIN_SEQ), relative L2 per leaf
+# within TRAIN_GRAD_TOL; micro_batches 2 against 1 on one batch (the JAX
+# test's bounds, loss rtol 1e-5, params atol 2e-5); a checkpoint at step
+# TRAIN_STEPS / 2 replayed to TRAIN_STEPS within 1e-6 of the
+# uninterrupted run (deterministic algorithms, TRAIN_CKPT_LAYERS layers);
+# two compressed steps whose applied gradient plus new residual equals
+# the gradient plus the old residual within 1e-6 relative.
+TRAIN_MODEL, TRAIN_SEED = "gemma3-1b", 26
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 1024, 1e-3
+TRAIN_PROFILE_STEP = 6
+TRAIN_GRAD_LAYERS, TRAIN_GRAD_TOL = 2, 1e-4
+# The checkpoint leg runs at one period of the 5:1 pattern: at all 26
+# layers the 12 GB state's save, write and restore took about 30 s on the
+# H100, near half the phase (PERF.md)
+TRAIN_CKPT_LAYERS = 6
+TRAIN_REDUCED = False              # True: the CPU rehearsal's reduced model
+
+
+_T_START: list = []             # main's start time, once it has one
 
 
 def emit(obj: dict) -> None:
     """Print one JSON line and append it to chiprun_out/smoke.jsonl, so
     every phase's line survives where only the end of the output is
-    kept."""
+    kept.  A phase's line gets ``t_s``, the seconds since main began."""
+    if "phase" in obj and _T_START:
+        obj = {**obj, "t_s": time.time() - _T_START[0]}
     line = json.dumps(obj)
     print(line, flush=True)
     OUT.mkdir(exist_ok=True)
@@ -798,7 +845,7 @@ def engine_parity(batch: int, quantum: int = 0, base=None) -> dict:
         for i in range(0, pre.size, batch):
             db.put(pre[i:i + batch])
         results = []
-        for mix, n in (("A", 12), ("C", 4), ("E", 4), ("A", 8)):
+        for mix, n in (("A", 12), ("C", 4), ("E", 4), ("A", 4)):
             for _ in range(n):
                 keys = zipf.keys(rng, batch)
                 kind = mix if mix != "A" else ("get" if rng.random() < 0.5
@@ -1047,10 +1094,12 @@ def select_range_profile(db) -> dict:
 
 
 def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
-              profile_steps: int = 8, quantum: int = 0, record=None):
+              profile_steps: int = 8, quantum: int = 0, record=None,
+              pre_batch: int = 0):
     """The recipe through ``PrismDB(..., compaction_quantum=quantum)``;
     returns the phase line and the facade.  ``record`` (a list) receives
-    every per-op result of the segments and the profiled window."""
+    every per-op result of the segments and the profiled window.  The
+    preload puts ``pre_batch`` keys a step (0: ``batch``)."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1073,11 +1122,12 @@ def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
     pre = torch.from_numpy(rng.permutation(n_pre).astype(np.int32)).to(
         db.device)
     t0 = time.time()
-    tick = max(n_pre // batch // 10, 1)
-    for j, i in enumerate(range(0, n_pre, batch)):
-        db.put(pre[i:i + batch])
+    pre_batch = pre_batch or batch
+    tick = max(n_pre // pre_batch // 10, 1)
+    for j, i in enumerate(range(0, n_pre, pre_batch)):
+        db.put(pre[i:i + pre_batch])
         if j % tick == tick - 1:
-            print(f"# preload {i + batch}/{n_pre} keys "
+            print(f"# preload {i + pre_batch}/{n_pre} keys "
                   f"{time.time() - t0:.1f}s compactions "
                   f"{int(db.estate.tier.ctr.compactions)}", file=sys.stderr,
                   flush=True)
@@ -1087,7 +1137,8 @@ def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
            "key_space": cfg.key_space,
            "fast_slots": cfg.fast_slots, "tracker_slots": cfg.tracker_slots,
            "max_runs": cfg.max_runs, "batch": batch, "init_s": t_init,
-           "preload_keys": n_pre, "preload_s": t_pre,
+           "preload_keys": n_pre, "preload_batch": pre_batch,
+           "preload_s": t_pre,
            "preload_steps": db.dispatches,
            "preload_compactions": db.counters["compactions"],
            "preload_ms_per_step": 1e3 * t_pre / max(db.dispatches, 1),
@@ -1206,7 +1257,7 @@ def main_path(scale: int, batch: int, seg: int, n_pre: int, device=None,
 WORKLOAD_SEGMENTS = tuple(("ycsb", k) for k in "ABCDEF") + tuple(
     ("twitter", c) for c in ("cluster39", "cluster19", "cluster51")) + (
     ("scenario", "hotset-shift"), ("scenario", "flash-crowd"))
-WORKLOAD_BATCHES = 16          # client batches per workload segment
+WORKLOAD_BATCHES = 8           # client batches per workload segment
 WORKLOAD_SEED = 100
 WORKLOAD_PROFILE_STEPS = 8     # a YCSB-A window under the profiler
 # three tiers: DRAM / 3D XPoint / QLC at the equal-budget slot split and
@@ -3279,6 +3330,379 @@ def whisper_decode_phase(params, cfg, batch, fwd_logits) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 2k
+
+def _train_args() -> list:
+    """The train phase's command line for repro_torch.launch.train."""
+    args = ["--arch", TRAIN_MODEL, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+            "--seed", str(TRAIN_SEED)]
+    return args + (["--reduced"] if TRAIN_REDUCED else [])
+
+
+def train_config(n_layers=None):
+    """The train phase's model (gemma3-1b at its published width; reduced
+    with TRAIN_REDUCED), cut to ``n_layers`` where a gate says so."""
+    from repro_torch.configs.base import get_arch, reduced
+    cfg = get_arch(TRAIN_MODEL)
+    cfg = reduced(cfg) if TRAIN_REDUCED else cfg
+    return cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+
+
+def _train_tcfg(**kw):
+    """The TrainConfig that the launcher makes of ``_train_args()``."""
+    from repro_torch.train import optimizer, trainer
+    return trainer.TrainConfig(adamw=optimizer.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS), **kw)
+
+
+def _dense_params(cfg) -> tuple:
+    """(all, in the blocks) parameter counts of a dense SwiGLU model with
+    RMS norms, no biases and tied embeddings (gemma3-1b)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    layer = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
+        + 3 * d * cfg.d_ff + 2 * d
+    return cfg.n_layers * layer + cfg.vocab * d + d, cfg.n_layers * layer
+
+
+def _train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step with remat: 6 N T for the forward
+    and backward of every parameter's matmul (the tied embedding counted
+    once, as the LM head), 2 N_blocks T for the blocks' recomputed
+    forward, and each layer's attention products over its visible
+    (query, key) pairs (4 Hq hd a pair forward), forward, recomputed
+    forward and backward (x 4)."""
+    from repro_torch.models import model
+    n, n_blocks = _dense_params(cfg)
+    attn = sum(4 * 4 * cfg.n_heads * cfg.head_dim * batch
+               * _visible_pairs(seq, seq, True, w)
+               for _, _, w in model.layer_plan(cfg))
+    t = batch * seq
+    return 6.0 * n * t + 2.0 * n_blocks * t + attn
+
+
+def _train_main_run(device) -> dict:
+    """``launch.train.main`` with ``_train_args()`` on ``device``, each
+    step timed (synchronised) and step TRAIN_PROFILE_STEP profiled; its
+    printed lines to chiprun_out/train_launcher.txt."""
+    import io
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import trainer
+    real, walls, prof = trainer.make_train_step, [], {}
+
+    def timed_maker(mcfg, tcfg):
+        step = real(mcfg, tcfg)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(walls) == TRAIN_PROFILE_STEP:
+                box = {}
+                prof.update(_profiled(lambda: box.update(
+                    out=step(state, batch)), "profile_train_step.txt"))
+                out = box["out"]
+            else:
+                out = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    trainer.make_train_step = timed_maker
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            losses = launch_train.main(_train_args() + (
+                ["--device", str(device)] if device is not None else []))
+    finally:
+        trainer.make_train_step = real
+    run_s = time.time() - t0
+    OUT.mkdir(exist_ok=True)
+    (OUT / "train_launcher.txt").write_text(buf.getvalue())
+    return {"losses": losses, "walls": walls, "profile": prof,
+            "run_s": run_s, "launches": {k: v for k, v in
+                                         kernels.LAUNCHES.items() if v},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _grad_precision_gate(device) -> dict:
+    """One step's gradients in float32 against the same step's in float64
+    at TRAIN_GRAD_LAYERS layers of the full width, batch 1 x TRAIN_SEQ:
+    relative L2 per leaf.  (The model computes its norms, attention
+    softmax and loss in float32 whatever the parameters' dtype, so the
+    float64 leg is float64 in its matmuls: the gate sees TF32 left on, or
+    any fault of the card's float32 path.)"""
+    import torch
+    from repro_torch.core.tree import leaves, map_tree
+    from repro_torch.models import model
+    from repro_torch.train import data, trainer
+    cfg = train_config(TRAIN_GRAD_LAYERS)
+    dev = torch.device(device or "cuda")
+    p32 = model.init_params(cfg, torch.Generator(dev).manual_seed(
+        TRAIN_SEED + 1), device=dev)
+    batch = data.model_batch(data.DataConfig(
+        seed=TRAIN_SEED, batch=1, seq_len=TRAIN_SEQ, vocab=cfg.vocab), cfg,
+        0, device=dev)
+    tcfg = trainer.TrainConfig()
+    l32, g32 = trainer.value_and_grad(cfg, tcfg, p32, batch)
+    p64 = map_tree(lambda t: t.double(), p32)
+    del p32
+    l64, g64 = trainer.value_and_grad(cfg, tcfg, p64, batch)
+    errs = [float(torch.linalg.vector_norm(a.double() - b)
+                  / torch.linalg.vector_norm(b).clamp(min=1e-300))
+            for a, b in zip(leaves(g32), leaves(g64))]
+    return {"layers": cfg.n_layers, "batch": [1, TRAIN_SEQ],
+            "loss_f32": float(l32), "loss_f64": float(l64),
+            "max_rel_l2": max(errs), "leaves": len(errs),
+            "ok": max(errs) <= TRAIN_GRAD_TOL}
+
+
+def _microbatch_gate(device) -> dict:
+    """One step of the full model at micro_batches 2 against 1 on one
+    batch, from one state: loss rtol 1e-5, every parameter within 2e-5
+    (tests/test_train_infra.py's bounds)."""
+    import torch
+    from repro_torch.core.tree import leaves
+    from repro_torch.train import data, trainer
+    cfg = train_config()
+    dev = torch.device(device or "cuda")
+    t1 = _train_tcfg()
+    s1 = trainer.init_state(cfg, t1, torch.Generator(dev).manual_seed(
+        TRAIN_SEED), device=dev)
+    n_params = sum(p.numel() for p in leaves(s1.params))
+    s2 = trainer.clone_state(s1)
+    batch = data.model_batch(data.DataConfig(
+        seed=TRAIN_SEED, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        vocab=cfg.vocab), cfg, 0, device=dev)
+    s1, m1 = trainer.make_train_step(cfg, t1)(s1, batch)
+    s2, m2 = trainer.make_train_step(cfg, t1._replace(micro_batches=2))(
+        s2, batch)
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(leaves(s1.params), leaves(s2.params)))
+    parted = sum(int(((a - b).abs() > 2e-5).sum()) for a, b in
+                 zip(leaves(s1.params), leaves(s2.params)))
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    return {"n_params": n_params, "loss_mb1": l1, "loss_mb2": l2,
+            "loss_rel_diff": abs(l1 - l2) / abs(l1),
+            "max_param_abs_diff": diff, "params_beyond_2e-5": parted,
+            "ok": abs(l1 - l2) <= 1e-5 * abs(l1) and diff <= 2e-5}
+
+
+def _checkpoint_gate(device) -> dict:
+    """With deterministic algorithms (the embedding gather's backward adds
+    atomically otherwise): TRAIN_STEPS steps from one state at
+    TRAIN_CKPT_LAYERS layers, an asynchronous checkpoint after step
+    TRAIN_STEPS / 2 written while the next steps update the state in
+    place; the checkpoint restored into a fresh state and replayed to
+    TRAIN_STEPS; every parameter within 1e-6 of the uninterrupted run.
+    The checkpoint goes to a directory under build/ that the gate
+    removes."""
+    import shutil
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.core.tree import leaves
+    from repro_torch.train import checkpoint, data, trainer
+    cfg = train_config(TRAIN_CKPT_LAYERS)
+    dev = torch.device(device or "cuda")
+    tcfg = _train_tcfg()
+    dcfg = data.DataConfig(seed=TRAIN_SEED, batch=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ, vocab=cfg.vocab)
+    mid = TRAIN_STEPS // 2
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    was = torch.are_deterministic_algorithms_enabled()
+    out = {"layers": cfg.n_layers, "at_step": mid}
+    try:
+        with warnings.catch_warnings():
+            # cuBLAS on one stream repeats its sums without
+            # CUBLAS_WORKSPACE_CONFIG; only its warning is silenced
+            warnings.filterwarnings("ignore", ".*CuBLAS.*")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            step = trainer.make_train_step(cfg, tcfg)
+            state = trainer.init_state(cfg, tcfg, torch.Generator(
+                dev).manual_seed(TRAIN_SEED), device=dev)
+            out["state_gb"] = sum(t.numel() * t.element_size()
+                                  for t in leaves(state)) / 1e9
+            mgr = checkpoint.CheckpointManager(ckdir)
+            for s in range(TRAIN_STEPS):
+                state, _ = step(state, data.model_batch(dcfg, cfg, s,
+                                                        device=dev))
+                if s + 1 == mid:
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    mgr.save(mid, state)
+                    out["save_call_s"] = time.time() - t0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            mgr.wait()
+            out["save_wait_after_steps_s"] = time.time() - t0
+            t0 = time.time()
+            restored = mgr.restore(mid, device=dev)
+            torch.cuda.synchronize()
+            out["restore_s"] = time.time() - t0
+            if int(restored.opt.step) != mid:
+                raise AssertionError("train: the checkpoint holds step "
+                                     f"{int(restored.opt.step)}, not {mid}")
+            for s in range(mid, TRAIN_STEPS):
+                restored, _ = step(restored, data.model_batch(
+                    dcfg, cfg, s, device=dev))
+            diff = max(float((a - b).abs().max()) for a, b in
+                       zip(leaves(restored.params), leaves(state.params)))
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    out.update({"max_param_abs_diff": diff, "ok": diff <= 1e-6})
+    return out
+
+
+def _compression_gate(device) -> dict:
+    """Two compressed steps (compress_grads=True) of the full model, with
+    deterministic algorithms: before each, the step's gradients
+    (``value_and_grad`` on the same state and batch) through
+    ``compress_tree``; per leaf, the applied gradient plus the new
+    residual against the gradient plus the old residual (relative L2,
+    within 1e-6), and the step's own new residual equal to that
+    ``compress_tree``'s bit for bit."""
+    import warnings
+    import torch
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import collectives
+    from repro_torch.train import data, trainer
+    cfg = train_config()
+    dev = torch.device(device or "cuda")
+    tcfg = _train_tcfg(compress_grads=True)
+    dcfg = data.DataConfig(seed=TRAIN_SEED, batch=TRAIN_BATCH,
+                           seq_len=TRAIN_SEQ, vocab=cfg.vocab)
+    was = torch.are_deterministic_algorithms_enabled()
+    worst, same, losses = 0.0, True, []
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", ".*CuBLAS.*")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            state = trainer.init_state(cfg, tcfg, torch.Generator(
+                dev).manual_seed(TRAIN_SEED), device=dev)
+            step = trainer.make_train_step(cfg, tcfg)
+            for s in range(2):
+                batch = data.model_batch(dcfg, cfg, s, device=dev)
+                _, g = trainer.value_and_grad(cfg, tcfg, state.params,
+                                              batch)
+                deq, ef = collectives.compress_tree(g, state.ef)
+                for gi, r0, d, r1 in zip(leaves(g), leaves(state.ef),
+                                         leaves(deq), leaves(ef)):
+                    want = gi + r0
+                    worst = max(worst, float(
+                        torch.linalg.vector_norm(d + r1 - want)
+                        / torch.linalg.vector_norm(want).clamp(
+                            min=1e-30)))
+                del g, deq
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                same &= all(torch.equal(a, b) for a, b in
+                            zip(leaves(ef), leaves(state.ef)))
+                del ef
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return {"steps": 2, "losses": losses, "max_rel_l2": worst,
+            "step_residual_equal": same, "ok": worst <= 1e-6 and same}
+
+
+def _guard_gate(device) -> dict:
+    """Training refuses the kernel backend, and B7 refuses inputs that
+    require grad (it has no backward)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.train import trainer
+    out = {}
+    try:
+        trainer.make_train_step(train_config(), trainer.TrainConfig(
+            backend="cuda"))
+        out["cuda_backend_refused"] = False
+    except NotImplementedError:
+        out["cuda_backend_refused"] = True
+    dev = torch.device(device or "cuda")
+    q = torch.zeros((1, 4, 64, 256), device=dev, requires_grad=True)
+    k = torch.zeros((1, 1, 64, 256), device=dev)
+    try:
+        flash_attention(q, k, k)
+        out["b7_refuses_grad"] = False
+    except RuntimeError:
+        out["b7_refuses_grad"] = True
+    out["ok"] = out["cuda_backend_refused"] and out["b7_refuses_grad"]
+    return out
+
+
+def train_phase(device=None) -> dict:
+    """gemma3-1b's training at its published width: the main run through
+    ``repro_torch.launch.train.main`` (``_train_args()``), then the gates
+    (``_grad_precision_gate``, ``_microbatch_gate``, ``_checkpoint_gate``,
+    ``_compression_gate``, ``_guard_gate``).  The main run's losses must
+    be finite and fall (last below first), and no kernel of B1-B9 may
+    launch (training runs the plain paths).  Reports loss per step, step
+    ms p50 and max (the profiled step apart), tokens/s and model TFLOP/s
+    at the p50 step, peak memory and the profiled step's device busy
+    share."""
+    import math
+    import torch
+    t_phase = time.time()
+    cfg = train_config()
+    run = _train_main_run(device)
+    walls = [w for i, w in enumerate(run["walls"])
+             if i != TRAIN_PROFILE_STEP]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = sorted(walls)[len(walls) // 2]
+    flops = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    n_params, n_blocks = _dense_params(cfg)
+    out = {"phase": "train", "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "n_params": n_params, "argv": _train_args(),
+           "losses": run["losses"],
+           "step_ms": [w * 1e3 for w in run["walls"]],
+           "step_ms_p50": p50 * 1e3, "step_ms_max": max(walls) * 1e3,
+           "first_step_ms": run["walls"][0] * 1e3,
+           "tokens_per_step": tokens, "tokens_per_s": tokens / p50,
+           "model_tflop_per_step": flops / 1e12,
+           "model_tflop_per_s": flops / p50 / 1e12,
+           "peak_gib": run["peak_gib"], "run_s": run["run_s"],
+           "profiled_step": run["profile"],
+           # the profiler's host cost stretches its window late in a
+           # process that traced before: the kernels' device time over
+           # the unprofiled p50 step is the busy share without it
+           "device_share_of_p50_step": run["profile"].get(
+               "device_busy_share", 0.0) * run["profile"]["window_s"] / p50,
+           "kernel_launches": run["launches"]}
+    torch.cuda.empty_cache()
+    gates = {}
+    for name, gate in (("grad_f32_vs_f64", _grad_precision_gate),
+                       ("micro_batches", _microbatch_gate),
+                       ("checkpoint_restart", _checkpoint_gate),
+                       ("compression", _compression_gate),
+                       ("guards", _guard_gate)):
+        t0 = time.time()
+        gates[name] = gate(device)
+        gates[name]["seconds"] = time.time() - t0
+        torch.cuda.empty_cache()
+    out["gates"] = gates
+    out["phase_s"] = time.time() - t_phase
+    losses = run["losses"]
+    if gates["micro_batches"]["n_params"] != n_params:
+        emit(out)
+        raise AssertionError("train: the parameter count of the FLOP model "
+                             "differs from the state's")
+    bad = [k for k, g in gates.items() if not g["ok"]]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0] or run["launches"] or bad:
+        emit(out)
+        raise AssertionError(f"train: losses {losses}, kernel launches "
+                             f"{run['launches']}, failed gates {bad}")
+    return out
+
+
 # ------------------------------------------------------------ phase 7
 
 def serve_kv_config(cfg):
@@ -3542,6 +3966,7 @@ def main() -> int:
     from repro_torch.configs.prismdb_kv import paper_tier_config
     from repro_torch.kernels import build
     t_start = time.time()
+    _T_START.append(t_start)
     OUT.mkdir(exist_ok=True)
     (OUT / "smoke.jsonl").write_text("")
     smi = smi_line()
@@ -3663,6 +4088,11 @@ def main() -> int:
     emit(whisper_decode_phase(params, wcfg, wbatch, wlogits))
     del params, wbatch, wlogits
     torch.cuda.empty_cache()
+
+    # gemma3-1b's training at full width through the launcher, on the
+    # plain paths (no kernel has a backward), and its gates
+    emit(train_phase())
+    torch.cuda.empty_cache()
     line, base = engine_parity(BATCH)
     emit(line)
     line, _ = engine_parity(BATCH, quantum=DRAIN_Q, base=base)
@@ -3700,7 +4130,8 @@ def main() -> int:
     rec0, recq = [], []
     full_res, db = main_path(FULL_SCALE, BATCH, FULL_SEGMENT,
                              FULL_PRELOAD_KEYS,
-                             profile_steps=FULL_PROFILE_STEPS, record=rec0)
+                             profile_steps=FULL_PROFILE_STEPS, record=rec0,
+                             pre_batch=FULL_PRELOAD_BATCH)
     full_res["phase"] = "main_full"
     full_res["select_range"] = select_range_profile(db)
     digest = _digest(db.estate.tier)
@@ -3709,7 +4140,8 @@ def main() -> int:
     fq_res, db = main_path(FULL_SCALE, BATCH, FULL_SEGMENT,
                            FULL_PRELOAD_KEYS,
                            profile_steps=FULL_PROFILE_STEPS,
-                           quantum=DRAIN_Q, record=recq)
+                           quantum=DRAIN_Q, record=recq,
+                           pre_batch=FULL_PRELOAD_BATCH)
     fq_res["phase"] = "main_full_quantum"
     if _digest(db.estate.tier) != digest:
         raise AssertionError("main_full_quantum: the end tier state differs "

@@ -13,7 +13,9 @@ PyTorch version and a hand-written CUDA kernel under
 
 Dispatch is static: ``backend`` comes from ``EngineConfig`` and is never
 read off tensor values.  There is no fallback from a CUDA tensor to the
-plain version.
+plain version.  No kernel has a backward (as no Pallas kernel of the JAX
+package has a VJP): a launcher given an input that autograd records
+raises (``refuse_grad``), so no gradient is lost without a word.
 """
 from __future__ import annotations
 
@@ -56,3 +58,15 @@ def use_kernel(backend: str, t: torch.Tensor) -> bool:
         return False
     raise RuntimeError(
         f"backend {backend!r} has no kernel for device {t.device}")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and one of a kernel's inputs requires
+    grad: the kernel's output would carry no graph, and every gradient
+    through it would be silently dropped.  Train on backend
+    "reference"."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires "
+            "grad; train on backend 'reference' (or call it under "
+            "torch.no_grad())")

@@ -11,15 +11,22 @@ Empty bucket slots hold -1, so the keys carry their own mask: one
 exchange of keys gives ``valid = routed >= 0``.
 
 Gloo carries CPU tensors and NCCL CUDA tensors; a tensor on a device
-that the group's backend cannot carry raises.  The int8 error-feedback
-half of the JAX file (gradient compression) belongs to training and is
-not here.
+that the group's backend cannot carry raises.
+
+The file's other half is training's int8 gradient compression with error
+feedback (``EFState``, ``quantize_int8``, ``compress_tree``,
+``compressed_all_reduce``), bit-equal to the JAX package's: symmetric
+per-tensor int8, rounding half to even in both, and the residual ``x -
+dequantize(quantize(x))`` carried to the next step.
 """
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.tree import map_tree
 from repro_torch.core.utils import pack_buckets, part_of_key
 
 _CARRIES = {"gloo": "cpu", "nccl": "cuda"}
@@ -103,3 +110,75 @@ def all_gather_stack(tree, group, device: torch.device):
     out = torch.cat(parts)
     out = out.view(torch.bool) if tree.dtype == torch.bool else out
     return out.to(tree.device)
+
+
+# ------------------------------------------- int8 error-feedback compression
+
+class EFState(NamedTuple):
+    residual: Any      # same tree as the gradients, float32
+
+
+def init_error_feedback(grads_shape) -> EFState:
+    """Zero residuals beside every leaf of ``grads_shape``."""
+    return EFState(residual=map_tree(
+        lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
+        grads_shape))
+
+
+def quantize_int8(x: torch.Tensor):
+    """Symmetric per-tensor int8: returns (q int8, scale float32 [])."""
+    amax = torch.max(torch.abs(x)) + 1e-12
+    scale = amax / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def _compress(g: torch.Tensor, r: torch.Tensor):
+    """(q, scale, dequantized, new residual) of g + r."""
+    x = g.to(torch.float32) + r
+    q, scale = quantize_int8(x)
+    deq = dequantize_int8(q, scale)
+    return q, scale, deq, x - deq
+
+
+def compress_tree(grads, ef: EFState):
+    """Quantize and dequantize each leaf of ``grads`` plus its residual,
+    so that what is reduced has int8 precision.  Returns (dequantized
+    grads, EFState of the new residuals)."""
+    residuals = []
+
+    def one(g, r):
+        *_, deq, res = _compress(g, r)
+        residuals.append(res)
+        return deq
+
+    deq = map_tree(one, grads, ef.residual)
+    left = iter(residuals)            # map_tree visits leaves in order
+    return deq, EFState(map_tree(lambda _: next(left), grads))
+
+
+def compressed_all_reduce(g: torch.Tensor, ef: torch.Tensor, group=None):
+    """The JAX package's ``compressed_psum`` over a ``torch.distributed``
+    group: g + ef quantized to int8, the int8 tensors and their scales
+    gathered from every rank (the wire carries int8), and the ranks'
+    dequantized values summed in rank order, so that every rank holds the
+    same sum.  ``group=None`` is the one-process case.  Returns (sum
+    float32, new residual)."""
+    q, scale, deq, new_ef = _compress(g, ef)
+    if group is None:
+        return deq, new_ef
+    check_device(q, group)
+    world = dist.get_world_size(group)
+    qs = [torch.empty_like(q) for _ in range(world)]
+    scales = torch.empty(world, dtype=scale.dtype, device=scale.device)
+    dist.all_gather(qs, q.contiguous(), group=group)
+    dist.all_gather(list(scales.chunk(world)), scale.reshape(1),
+                    group=group)
+    red = dequantize_int8(qs[0], scales[0])
+    for qr, sr in zip(qs[1:], scales[1:]):
+        red = red + dequantize_int8(qr, sr)
+    return red, new_ef

@@ -76,6 +76,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = -1,
     """Launch the flash_attention kernel: q [B, Hq, Sq, D], k/v
     [B, Hkv, Sk, D] on one card, all float32 or all bfloat16, Hq a
     multiple of Hkv, D <= 256.  Returns [B, Hq, Sq, D] in q's dtype."""
+    backend_mod.refuse_grad("flash_attention", q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dev = q.device

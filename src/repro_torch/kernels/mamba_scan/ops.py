@@ -37,6 +37,7 @@ def mamba_scan(x, dt, A, B, C, D) -> torch.Tensor:
     [Di, N], B, C float32 [Bb, T, N], D float32 [Di], on one card (x, dt,
     B, C with a contiguous last dimension), N <= 16.  Returns a new
     contiguous float32 [Bb, T, Di]."""
+    backend_mod.refuse_grad("mamba_scan", x, dt, A, B, C, D)
     bb, t, di = x.shape
     dev = x.device
     for name, a in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C),

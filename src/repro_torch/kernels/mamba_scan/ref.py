@@ -21,10 +21,14 @@ def mamba_ref(x, dt, A, B, C, D):
     xf, dtf, bf, cf = (a.to(f32) for a in (x, dt, B, C))
     af, df = A.to(f32), D.to(f32)
     h = torch.zeros((bb, di, af.shape[1]), dtype=f32, device=x.device)
-    y = torch.empty((bb, t, di), dtype=f32, device=x.device)
+    if t == 0:
+        return torch.empty((bb, 0, di), dtype=x.dtype, device=x.device)
+    # stacked, not written into a buffer: autograd then keeps one node for
+    # the sequence instead of one full-buffer copy a step
+    y = []
     for i in range(t):
         xt, dtt = xf[:, i], dtf[:, i]                        # [Bb, Di]
         da = torch.exp(dtt[..., None] * af)                  # [Bb, Di, N]
         h = da * h + (dtt * xt)[..., None] * bf[:, i, None, :]
-        y[:, i] = torch.sum(h * cf[:, i, None, :], dim=-1) + df * xt
-    return y.to(x.dtype)
+        y.append(torch.sum(h * cf[:, i, None, :], dim=-1) + df * xt)
+    return torch.stack(y, dim=1).to(x.dtype)

@@ -55,6 +55,7 @@ def rwkv6_scan(r, k, v, w, u) -> torch.Tensor:
     """Launch the rwkv6_scan kernel: r, k, v, w float32 [B, H, T, D] on
     one card (last dimension contiguous), u float32 [H, D], D <= 64.
     Returns a new contiguous float32 [B, H, T, D]."""
+    backend_mod.refuse_grad("rwkv6_scan", r, k, v, w, u)
     b, h, t, d = r.shape
     dev = r.device
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):

@@ -15,6 +15,15 @@ from __future__ import annotations
 import torch
 
 
+def _stack(steps: list, shape: tuple, r) -> torch.Tensor:
+    """The per-step outputs [B, H, D] as [B, H, T, D] in r's dtype.  They
+    are stacked, not written into a buffer, so autograd keeps one node
+    for the sequence instead of one full-buffer copy a step."""
+    if not steps:
+        return torch.empty(shape, dtype=r.dtype, device=r.device)
+    return torch.stack(steps, dim=2).to(r.dtype)
+
+
 def rwkv6_ref(r, k, v, w, u):
     """r, k, v, w: [B, H, T, D] (w = decay in (0, 1)); u: [H, D].
     Returns [B, H, T, D] in r's dtype."""
@@ -22,12 +31,12 @@ def rwkv6_ref(r, k, v, w, u):
     rf, kf, vf, wf = (x.to(torch.float32) for x in (r, k, v, w))
     uu = u.to(torch.float32)[None, :, :, None]             # [1, H, D, 1]
     s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
-    out = torch.empty((b, h, t, d), dtype=torch.float32, device=r.device)
+    out = []
     for i in range(t):
         kv = kf[:, :, i, :, None] * vf[:, :, i, None, :]   # [B, H, D, D]
-        out[:, :, i] = (rf[:, :, i, None, :] @ (s + uu * kv))[:, :, 0]
+        out.append((rf[:, :, i, None, :] @ (s + uu * kv))[:, :, 0])
         s = wf[:, :, i, :, None] * s + kv
-    return out.to(r.dtype)
+    return _stack(out, (b, h, t, d), r)
 
 
 def rwkv6_split_ref(r, k, v, w, u):
@@ -40,10 +49,10 @@ def rwkv6_split_ref(r, k, v, w, u):
     rf, kf, vf, wf = (x.to(torch.float32) for x in (r, k, v, w))
     beta = (rf * u.to(torch.float32)[None, :, None, :] * kf).sum(-1)
     s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
-    out = torch.empty((b, h, t, d), dtype=torch.float32, device=r.device)
+    out = []
     for i in range(t):
-        out[:, :, i] = (rf[:, :, i, None, :] @ s)[:, :, 0] \
-            + vf[:, :, i] * beta[:, :, i, None]
+        out.append((rf[:, :, i, None, :] @ s)[:, :, 0]
+                   + vf[:, :, i] * beta[:, :, i, None])
         s = wf[:, :, i, :, None] * s + kf[:, :, i, :, None] \
             * vf[:, :, i, None, :]
-    return out.to(r.dtype)
+    return _stack(out, (b, h, t, d), r)

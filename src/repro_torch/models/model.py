@@ -21,6 +21,12 @@ flash_attention kernel (B7) in every attention layer (whisper's
 encoder layers non-causal), the rwkv6_scan kernel (B8) in every rwkv
 layer and the mamba_scan kernel (B9) in every mamba layer.
 
+``forward`` and ``loss_fn`` are differentiable (the trainer takes its
+gradients through them with ``torch.autograd``); with ``remat`` each
+block runs under ``torch.utils.checkpoint``, as the JAX package wraps
+its scanned blocks in ``jax.checkpoint``.  The decode paths run under
+``torch.no_grad``.
+
 ``banded_local`` (the dry run's banded attention) raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -28,9 +34,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
+from repro_torch.core.tree import leaves
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -181,36 +189,55 @@ def _lm_logits(cfg: ModelConfig, params, x):
     return x @ head
 
 
+def _tracks_grad(*trees) -> bool:
+    """True when autograd records a graph of these inputs: grad mode is
+    on and a leaf requires grad."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for tree in trees for t in leaves(tree))
+
+
+def _remat(on: bool, fn, *args):
+    """``fn(*args)``; with ``on``, its activations are recomputed in the
+    backward pass instead of kept (the JAX package's ``jax.checkpoint`` of
+    each scanned block).  The model draws no random numbers, so no RNG
+    state is saved."""
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def forward(cfg: ModelConfig, params, batch: dict, *,
-            backend: str = "reference"):
+            backend: str = "reference", remat: bool = True):
     """batch: ``tokens`` [B, S], or ``embeds`` [B, S, D] (the vlm stub
     frontend's patch embeddings), and optionally ``positions`` [B, S]
     (M-RoPE: [B, S, 3]; the mamba and rwkv layers read none); the audio
     family takes ``enc_embeds`` [B, S_enc, D] and decoder ``tokens``.
     Returns (logits [B, S, V], aux), aux the float32 sum of the MoE
-    layers' load-balancing losses (zero without MoE).  Evaluation only:
-    no gradient is kept."""
+    layers' load-balancing losses (zero without MoE).  Differentiable:
+    with ``remat`` and a graph being recorded (grad mode on and a
+    parameter or input that requires grad), each block is recomputed in
+    the backward pass; otherwise no block is wrapped."""
     check_supported(cfg)
+    remat = remat and _tracks_grad(params, batch)
     if cfg.family == "audio":
-        return _forward_encdec(cfg, params, batch, backend)
-    with torch.no_grad():
-        if "embeds" in batch:
-            x = batch["embeds"].to(params["embed"].dtype)
-        else:
-            x = params["embed"][batch["tokens"].to(torch.int64)]
-        positions = batch.get("positions")
-        if positions is None:
-            positions = _arange_positions(*x.shape[:2], x.device)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p, (kind, use_moe, window) in zip(params["blocks"],
-                                              layer_plan(cfg)):
-            x, extras = _block_apply(cfg, p, x, positions, window, kind,
-                                     use_moe, backend)
-            if use_moe:
-                aux = aux + extras["aux_loss"].to(torch.float32)
-        x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        logits = _lm_logits(cfg, params, x)
-    return logits, aux
+        return _forward_encdec(cfg, params, batch, backend, remat)
+    if "embeds" in batch:
+        x = batch["embeds"].to(params["embed"].dtype)
+    else:
+        x = params["embed"][batch["tokens"].to(torch.int64)]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _arange_positions(*x.shape[:2], x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, (kind, use_moe, window) in zip(params["blocks"],
+                                          layer_plan(cfg)):
+        x, extras = _remat(remat, _block_apply, cfg, p, x, positions,
+                           window, kind, use_moe, backend)
+        if use_moe:
+            aux = aux + extras["aux_loss"].to(torch.float32)
+    x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return _lm_logits(cfg, params, x), aux
 
 
 def _enc_block(cfg: ModelConfig, blk, x, pos, backend: str):
@@ -235,47 +262,47 @@ def _dec_block(cfg: ModelConfig, blk, x, pos, enc, backend: str):
     return x + ffn(blk["ffn"], h, cfg.ffn_kind, cfg.act)
 
 
-def _encode(cfg: ModelConfig, params, enc_embeds, backend: str):
+def _encode(cfg: ModelConfig, params, enc_embeds, backend: str,
+            remat: bool = False):
     """Whisper's encoder over the stub frontend's frame embeddings
-    [B, S_enc, D]: every encoder block, then ``enc_final_norm``."""
-    with torch.no_grad():
-        x = enc_embeds.to(params["embed"].dtype)
-        pos = _arange_positions(*x.shape[:2], x.device)
-        for blk in params["enc_blocks"]:
-            x = _enc_block(cfg, blk, x, pos, backend)
-        return norm(params["enc_final_norm"], x, cfg.norm_kind,
-                    cfg.norm_eps)
+    [B, S_enc, D]: every encoder block (each recomputed in the backward
+    pass with ``remat``), then ``enc_final_norm``."""
+    x = enc_embeds.to(params["embed"].dtype)
+    pos = _arange_positions(*x.shape[:2], x.device)
+    for blk in params["enc_blocks"]:
+        x = _remat(remat, _enc_block, cfg, blk, x, pos, backend)
+    return norm(params["enc_final_norm"], x, cfg.norm_kind, cfg.norm_eps)
 
 
-def _forward_encdec(cfg: ModelConfig, params, batch, backend: str):
+def _forward_encdec(cfg: ModelConfig, params, batch, backend: str,
+                    remat: bool = False):
     """Whisper: the encoder (``_encode``), then the causal decoder over
     ``batch["tokens"]`` with cross-attention to the encoder's output in
-    every block.  aux is zero."""
-    enc = _encode(cfg, params, batch["enc_embeds"], backend)
-    with torch.no_grad():
-        x = params["embed"][batch["tokens"].to(torch.int64)]
-        pos = _arange_positions(*x.shape[:2], x.device)
-        for blk in params["blocks"]:
-            x = _dec_block(cfg, blk, x, pos, enc, backend)
-        x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
-        return _lm_logits(cfg, params, x), torch.zeros(
-            (), dtype=torch.float32, device=x.device)
+    every block (each recomputed in the backward pass with ``remat``).
+    aux is zero."""
+    enc = _encode(cfg, params, batch["enc_embeds"], backend, remat)
+    x = params["embed"][batch["tokens"].to(torch.int64)]
+    pos = _arange_positions(*x.shape[:2], x.device)
+    for blk in params["blocks"]:
+        x = _remat(remat, _dec_block, cfg, blk, x, pos, enc, backend)
+    x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return _lm_logits(cfg, params, x), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
-def loss_fn(cfg: ModelConfig, params, batch, *, backend: str = "reference"):
-    """Mean next-token NLL over labels >= 0 (plus 0.01 * aux), evaluated
-    under ``torch.no_grad``."""
-    logits, aux = forward(cfg, params, batch, backend=backend)
-    with torch.no_grad():
-        labels = batch["labels"].to(torch.int64)
-        logits = logits.to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[
-            ..., 0]
-        mask = (labels >= 0).to(torch.float32)
-        nll = torch.sum((logz - gold) * mask) / torch.clamp(
-            torch.sum(mask), min=1.0)
-        return nll + 0.01 * aux
+def loss_fn(cfg: ModelConfig, params, batch, *, backend: str = "reference",
+            remat: bool = True):
+    """Mean next-token NLL over labels >= 0 (plus 0.01 * aux);
+    differentiable (``forward``'s ``remat``)."""
+    logits, aux = forward(cfg, params, batch, backend=backend, remat=remat)
+    labels = batch["labels"].to(torch.int64)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    nll = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                        min=1.0)
+    return nll + 0.01 * aux
 
 
 # ----------------------------------------------------------------- decode
