@@ -90,6 +90,25 @@ Phases, each printed as one JSON line:
                  equivalence, checkpoint restart, the error-feedback
                  identity of compressed steps, the refusal of kernels
                  under autograd
+  2l. launch_serve -- repro_torch.launch.serve.main at its defaults on the
+                 card (backend "cuda"), each tick timed; the same weights,
+                 pools and requests through a ServeEngine on "reference":
+                 every request retires, equal tokens, tier states equal
+                 or parted only at an msc_score near-tie, B1 launches
+                 (B2 too where a compaction ran); tokens/s, tick p50,
+                 host reads a tick, launches
+  2m. banded_prefill -- gemma3-1b at full width with banded_local (float32
+                 weights from a seed), 2 x 4,096 tokens: the banded
+                 "cuda" forward (B7 in the 4 global layers, the plain
+                 S x 2w band in the 22 local ones) and the masked one (B7
+                 in all 26), timed and profiled; every layer on the
+                 model's own activations (band against the masked
+                 softmax, B7 against its plain version); the argmax gate
+                 between the two; then the dry run's prediction for this
+                 cell on a 1x1 local mesh (a one-rank NCCL group): the
+                 argument bytes against the bytes held, a table laid out
+                 by the spec's placements, op_cost's FLOPs beside
+                 model_flops, mfu_f32
   3. parity   -- the engine at paper_tier_config(scale=1) on one op
                  stream: backend "cuda" on the card vs "reference" on the
                  card and on the CPU; state, counters and per-op results
@@ -151,6 +170,12 @@ Phases, each printed as one JSON line:
                  part from the "cuda" one only at a compaction whose
                  candidates the msc_score kernel and the plain scorer rank
                  differently on a near-tie
+  6. dryrun   -- the port's dry run of every arch x applicable shape x
+                 mesh, baseline and opt, on the meta device in two host
+                 processes started before the kernel checks: every
+                 baseline cell ok, the opt variant failing exactly the
+                 moe cells (ep_local is not ported); the banded_prefill
+                 cell's check
 Then the kernels line, the nvidia-smi line, and the final ok line.  The
 sizes are the module constants below; PERF.md ("Scale used") says why.
 
@@ -3950,6 +3975,418 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None,
     return out, b6
 
 
+# ------------------------------------------------------ the launch plane
+
+# launch_serve: repro_torch.launch.serve.main at its defaults (reduced
+# phi4-mini-3.8b, float32 weights from seed 0; 16 requests of 48 prompt
+# and 16 new tokens through 8 slots, 96 fast pages of 8 tokens) on the
+# card, backend "cuda"; then a ServeEngine on "reference" with the same
+# weights, pools and requests.
+# banded_prefill: gemma3-1b at its published width (src/repro/configs/
+# gemma3_1b.py: 26 layers, d 1,152, 4 heads / 1 KV of 256, window 512 in
+# 5 of every 6 layers: 22 local, 4 global), float32 weights from
+# BANDED_SEED (1.00 B parameters, 4.0 GB), banded_local on, over
+# BANDED_BATCH x BANDED_SEQ tokens from BANDED_TOKENS_SEED: the banded
+# forward (the S x 2w band in the local layers, B7 in the global ones)
+# against the masked one (B7 in all 26).
+BANDED_MODEL = "gemma3-1b"
+BANDED_SEED, BANDED_TOKENS_SEED = 26, 27
+BANDED_BATCH, BANDED_SEQ = 2, 4096
+# dryrun: the port's dry run, baseline and opt, over every arch x
+# applicable shape x mesh, on the meta device in two processes of the
+# card's host started before the kernel checks (chiprun_out/dryrun_torch,
+# chiprun_out/dryrun_{variant}.log).
+DRYRUN_VARIANTS = ("baseline", "opt")
+DRYRUN_WAIT_S = 600
+
+
+def start_dryrun() -> list:
+    """Start the dry run of every cell, one process a variant, with no
+    card visible to them, at the lowest CPU priority (niceness 19), so
+    that the timed host-bound phases that run beside them take the host
+    first.  Returns [(variant, process, start time, log file)]."""
+    import os
+    out = OUT / "dryrun_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.glob("*.json"):
+        f.unlink()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    procs = []
+    for variant in DRYRUN_VARIANTS:
+        log = open(OUT / f"dryrun_{variant}.log", "w")
+        procs.append((variant, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+             str(out), "--variant", variant], cwd=ROOT, env=env,
+            stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(19)), time.time(), log))
+    return procs
+
+
+def stop_dryrun(procs: list) -> None:
+    """Kill whichever dry-run process still runs, and close the logs."""
+    for _, p, _, log in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        log.close()
+
+
+def launch_serve_phase() -> dict:
+    """``repro_torch.launch.serve.main([])``, the launcher at its
+    defaults, on the card: its ticks timed one by one (with a
+    synchronise) and each tick's tier checksums kept, its requests
+    recorded, every msc_score call also scored by the plain scorer.  Then
+    the same weights, pools and requests through a ``ServeEngine`` on
+    backend "reference" on the card.  Gates: every request retires with
+    max_new tokens; the legs' tokens are equal; their tier states equal
+    or parted only at an msc_score near-tie; each kernel that the
+    launcher's path reaches launched (B1 on every tick; B2 where a
+    compaction ran)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import engine
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.engine import Request, ServeEngine
+    walls, comps, digs, reqs, log = [], [], [], [], []
+
+    class TimedEngine(ServeEngine):
+        def step(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            busy = super().step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            comps.append(int(self.est.tier.ctr.compactions))
+            digs.append(_digest(self.est.tier))
+            return busy
+
+    def request(**kw):
+        reqs.append(Request(**kw))
+        return reqs[-1]
+
+    kernels.reset_launches()
+    engine.HOST_READS.n = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with mock.patch.multiple(launch_serve, ServeEngine=TimedEngine,
+                             Request=request), _score_log(log):
+        eng = launch_serve.main([])
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    ticks = eng.stats["steps"]
+    cu = {"ticks": ticks, "wall_s": wall,
+          "host_reads_per_tick": engine.HOST_READS.n / ticks,
+          "launches": launches,
+          "max_memory_allocated_gib":
+              torch.cuda.max_memory_allocated() / 2**30}
+    n_proc = sum(len(r.prompt) + len(r.out) for r in reqs)
+    w = np.asarray(walls) * 1e3
+    cu.update(tokens_per_s=n_proc / (w.sum() / 1e3),
+              tick_ms_p50=float(np.percentile(w, 50)),
+              tick_ms_p90=float(np.percentile(w, 90)),
+              counters={k: v for k, v in eng.counters.items() if v})
+    ref = ServeEngine(eng.mcfg, eng.cfg, eng.params, seed=0,
+                      backend="reference", device=eng.device)
+    rreqs = [Request(rid=r.rid, prompt=list(r.prompt), max_new=r.max_new)
+             for r in reqs]
+    for r in rreqs:
+        ref.submit(r)
+    rcomps, rdigs = [], []
+    t0 = time.time()
+    while ref.queue or ref.active:
+        ref.step()
+        rcomps.append(int(ref.est.tier.ctr.compactions))
+        rdigs.append(_digest(ref.est.tier))
+    torch.cuda.synchronize()
+    out = {"phase": "launch_serve", "argv": [], "model": eng.mcfg.name,
+           "layers": eng.mcfg.n_layers, "d_model": eng.mcfg.d_model,
+           "kv": eng.cfg._asdict(), "requests": len(reqs), "cuda": cu,
+           "reference": {"ticks": ref.stats["steps"],
+                         "wall_s": time.time() - t0}}
+    tokens = [r.out for r in reqs]
+    out["tokens_equal"] = tokens == [r.out for r in rreqs]
+    why = _explain_divergence(log, comps, {"cuda": digs, "reference": rdigs})
+    out["divergence"] = why
+    fails = []
+    if any(len(r.out) != r.max_new for r in reqs) or \
+            eng.stats["retired"] != len(reqs):
+        fails.append("a request did not retire with max_new tokens")
+    if not out["tokens_equal"]:
+        fails.append("the legs' generated tokens differ")
+    if not why["explained"]:
+        fails.append("the legs' tier states part where no msc_score "
+                     "near-tie accounts for it")
+    reached = ["clock_update"] + (["msc_score"]
+                                  if eng.counters["compactions"] else [])
+    fails += [f"kernel {k} never launched" for k in reached
+              if launches[k] <= 0]
+    out["kernels_reached"] = reached
+    out["ok"] = not fails
+    if fails:
+        emit(out)
+        raise AssertionError("launch_serve: " + "; ".join(fails))
+    return out
+
+
+def _banded_layer_check(cfg, params, x, pos) -> dict:
+    """Every layer of the banded forward on the model's own activations
+    (the banded "cuda" blocks feed the next layer): a local layer's band
+    (``banded_attention``) against the masked softmax at its window, a
+    global layer's B7 core against ``attention_ref`` (max abs) and its
+    block on "cuda" against "reference" (relative, Frobenius norm)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import attention, model
+    from repro_torch.models.common import norm
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    out = {"band_rel_err": [], "global_core_max_abs_err": [],
+           "global_block_rel_err": []}
+    with torch.no_grad():
+        for blk, (kind, use_moe, w) in zip(params["blocks"],
+                                           model.layer_plan(cfg)):
+            h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+            if w > 0:
+                out["band_rel_err"].append(rel(
+                    attention.banded_attention(blk["mixer"], cfg, h, pos, w),
+                    attention.attention(blk["mixer"], cfg, h, pos, w)))
+            else:
+                q, k, v = attention._qkv(blk["mixer"], cfg, h, pos)
+                out["global_core_max_abs_err"].append(float(
+                    (mha(q, k, v, causal=True, backend="cuda")
+                     - attention_ref(q, k, v, causal=True)).abs().max()))
+                del q, k, v
+            y = model._block_apply(cfg, blk, x, pos, w, kind, use_moe,
+                                   "cuda", banded=True)[0]
+            if w <= 0:
+                yr = model._block_apply(cfg, blk, x, pos, w, kind, use_moe,
+                                        "reference", banded=True)[0]
+                out["global_block_rel_err"].append(rel(y, yr))
+                del yr
+            del h
+            x = y
+    return out
+
+
+def banded_prefill_phase(device=None):
+    """gemma3-1b at its published width with ``banded_local``: the banded
+    forward on backend "cuda" (B7 in the 4 global layers, the plain band
+    in the 22 local ones), timed and profiled, against the masked "cuda"
+    forward (B7 in all 26).  Gates: B7 launches 4 times in a banded
+    forward and 26 in a masked one; every layer holds on the model's own
+    activations (``_banded_layer_check``: band BLOCK_TOL, B7 core
+    ATTN_CORE_TOL, global block BLOCK_TOL); the two forwards' argmax
+    agree but for near-ties (``_gate_ok``).  Returns (phase line, params,
+    batch, config, the banded forward's seconds)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model
+    dev = torch.device(device or "cuda")
+    cfg = get_arch(BANDED_MODEL).replace(banded_local=True)
+    params = model.init_params(cfg, torch.Generator(dev).manual_seed(
+        BANDED_SEED), device=dev)
+    gen = torch.Generator(dev).manual_seed(BANDED_TOKENS_SEED)
+    tokens = torch.randint(0, cfg.vocab, (BANDED_BATCH, BANDED_SEQ),
+                           generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    out = {"phase": "banded_prefill", "model": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "windows": list(cfg.window_pattern), "tokens": list(tokens.shape),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in _param_leaves(params)) / 1e9}
+    logits, legs = {}, {}
+    plain = cfg.replace(banded_local=False)
+    for name, c in (("banded", cfg), ("masked", plain)):
+        with torch.no_grad():
+            model.forward(c, params, batch, backend="cuda")   # warm
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            lg, _ = model.forward(c, params, batch, backend="cuda")
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            legs[name] = {
+                "forward_s": dt, "tokens_per_s": tokens.numel() / dt,
+                "flash_attention_launches": kernels.LAUNCHES[
+                    "flash_attention"],
+                "max_memory_allocated_gib":
+                    torch.cuda.max_memory_allocated() / 2**30}
+            del lg
+            torch.cuda.empty_cache()
+            legs[name]["profiled_forward"] = _profiled(
+                lambda: model.forward(c, params, batch, backend="cuda"),
+                f"profile_banded_prefill_{name}.txt")
+            logits[name], _ = model.forward(c, params, batch, backend="cuda")
+            if not torch.isfinite(logits[name]).all():
+                raise AssertionError(f"banded_prefill ({name}): non-finite "
+                                     "logits")
+    out.update(legs)
+    gate = _argmax_gate(logits["banded"], logits["masked"])
+    out.update(gate)
+    del logits
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with torch.no_grad():
+        x = params["embed"][tokens.to(torch.int64)]
+    pos = torch.arange(BANDED_SEQ, device=dev)[None].expand(BANDED_BATCH,
+                                                            BANDED_SEQ)
+    check = _banded_layer_check(cfg, params, x, pos)
+    check["seconds"] = time.time() - t0
+    out["layer_check"] = check
+    del x
+    torch.cuda.empty_cache()
+    n_global = sum(1 for w in cfg.layer_windows if w <= 0)
+    fails = []
+    if legs["banded"]["flash_attention_launches"] != n_global or \
+            legs["masked"]["flash_attention_launches"] != cfg.n_layers:
+        fails.append(
+            f"flash_attention launched "
+            f"{legs['banded']['flash_attention_launches']} / "
+            f"{legs['masked']['flash_attention_launches']} times in a "
+            f"banded / masked forward, not {n_global} / {cfg.n_layers}")
+    if max(check["band_rel_err"]) > BLOCK_TOL or \
+            max(check["global_core_max_abs_err"]) > ATTN_CORE_TOL or \
+            max(check["global_block_rel_err"]) > BLOCK_TOL:
+        fails.append("a layer differs from its plain version")
+    if not _gate_ok(gate):
+        fails.append("the banded and masked forwards' argmax differ beyond "
+                     "near-ties")
+    out["ok"] = not fails
+    if fails:
+        emit(out)
+        raise AssertionError("banded_prefill: " + "; ".join(fails))
+    return out, params, batch, cfg, legs["banded"]["forward_s"]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_cell_check(cfg, params, batch, forward_s: float) -> dict:
+    """The dry run's prediction for the banded_prefill cell held against
+    the card: on a 1x1 ``make_local_mesh`` (a one-rank NCCL group), the
+    argument bytes predicted from meta tensors of the run's shapes and
+    dtypes must equal the bytes its params and inputs hold, and the
+    embedding table laid out by ``placements`` must come back whole.  On
+    one rank no leaf is cut, so this confirms shapes and dtypes only (the
+    sharded bytes are held to DTensor's local shards on the CPU, in
+    tests/test_torch_launch.py);
+    op_cost's FLOPs of the forward on the meta device beside
+    ``analysis.model_flops``, and the measured forward beside the
+    compute time at the f32 peak."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models import model
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.op_cost import op_cost
+    shape = ShapeConfig("banded_prefill", BANDED_SEQ, BANDED_BATCH,
+                        "prefill")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = mesh_mod.make_local_mesh(1, 1)
+        specs = (model.param_specs(cfg),
+                 dryrun.batch_specs_tree(cfg, shape))
+        meta = (model.init_params(cfg, None, torch.float32, "meta"),
+                input_specs(cfg, shape))
+        predicted = dryrun.per_device_bytes(specs, meta, mesh)
+        held = sum(t.numel() * t.element_size()
+                   for t in _param_leaves(params)) + sum(
+            t.numel() * t.element_size() for t in batch.values())
+        emb = params["embed"]
+        spec = sharding.logical_to_spec(specs[0]["embed"], mesh, emb.shape)
+        d = distribute_tensor(emb, mesh, sharding.placements(spec, mesh))
+        whole = bool(torch.equal(d.full_tensor(), emb))
+        axes = sharding.mesh_axes(mesh)
+        del d
+    finally:
+        dist.destroy_process_group()
+    t0 = time.time()
+    with torch.no_grad():
+        _, cost = op_cost(lambda: model.forward(cfg, *meta)[0])
+    cost_s = time.time() - t0
+    mf = analysis.model_flops(cfg, shape)
+    out = {"mesh": axes, "argument_bytes_predicted": predicted,
+           "argument_bytes_held": held, "embed_spec": list(spec),
+           "embed_distributed_whole": whole,
+           "op_cost_flops": cost["flops"], "op_cost_bytes": cost["bytes"],
+           "op_cost_s": cost_s, "model_flops": mf,
+           "forward_s": forward_s,
+           "compute_s_f32": cost["flops"] / analysis.PEAK_FLOPS_F32,
+           "model_compute_s_f32": mf / analysis.PEAK_FLOPS_F32,
+           "mfu_f32": mf / analysis.PEAK_FLOPS_F32 / forward_s}
+    if predicted != held or not whole:
+        raise AssertionError(f"dryrun: predicted argument bytes "
+                             f"{predicted} != {held} held, or the "
+                             f"distributed table came back changed")
+    return out
+
+
+def dryrun_phase(procs: list, cell: dict) -> dict:
+    """Collect the dry-run processes (each within DRYRUN_WAIT_S of now):
+    the cells that are ok and the failed ones by name, per variant, and
+    each process's seconds.  Gates: every process exits, every baseline
+    cell is ok, and the opt variant fails exactly the cells of the moe
+    archs (the expert-parallel dispatch is not ported)."""
+    from repro_torch.configs.base import (all_archs, applicable_shapes,
+                                          get_arch)
+    recs = {v: [] for v in DRYRUN_VARIANTS}
+    out = {"phase": "dryrun", "cell_check": cell}
+    fails = []
+    for variant, p, t0, log in procs:
+        try:
+            rc = p.wait(timeout=DRYRUN_WAIT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+            fails.append(f"the {variant} dry run did not finish")
+        out[f"{variant}_s"] = time.time() - t0
+        out[f"{variant}_rc"] = rc
+    for f in sorted((OUT / "dryrun_torch").glob("*.json")):
+        rec = json.loads(f.read_text())
+        recs[rec["variant"]].append(rec)
+    cells = {(a, s.name, m) for a in all_archs()
+             for s in applicable_shapes(get_arch(a))
+             for m in ("16x16", "2x16x16")}
+    moe = {c for c in cells if get_arch(c[0]).moe}
+    for variant in DRYRUN_VARIANTS:
+        got = {(r["arch"], r["shape"], r["mesh"]) for r in recs[variant]}
+        bad = {(r["arch"], r["shape"], r["mesh"]) for r in recs[variant]
+               if not r["ok"]}
+        out[variant] = {"cells": len(got),
+                        "ok": len(got) - len(bad),
+                        "failed": sorted("_".join(c) for c in bad),
+                        "run_s": sum(r.get("lower_s", 0)
+                                     for r in recs[variant])}
+        if got != cells:
+            fails.append(f"{variant}: {len(cells - got)} cells missing")
+        want_bad = moe if variant == "opt" else set()
+        if bad != want_bad:
+            fails.append(f"{variant}: failed {sorted(bad ^ want_bad)} "
+                         "against expectation")
+    if any("ep_local" not in r["error"] for r in recs["opt"]
+           if not r["ok"]):
+        fails.append("an opt cell failed for another reason than ep_local")
+    out["ok"] = not fails
+    if fails:
+        emit(out)
+        raise AssertionError("dryrun: " + "; ".join(fails))
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -3995,193 +4432,211 @@ def main() -> int:
                              f"flash_attention or any paged_attention "
                              f"instance that spills: {bad}")
 
-    from repro_torch.core.embedding_store import EmbedStoreConfig
-    rng = np.random.default_rng(0)
-    full = paper_tier_config(FULL_SCALE)
-    embed_cfg = EmbedStoreConfig(vocab=EMBED_VOCAB, dim=EMBED_DIM,
-                                 fast_rows=EMBED_FAST_ROWS)
-    rows = [check_clock_update(full, BATCH, rng), check_msc_score(full, rng)]
-    rows += check_tier_compact(full, embed_cfg, rng)
-    rows.append(check_flash_attention(rng, flash_sass))
-    rows.append(check_rwkv6_scan(rng, _kernel_instances(
-        report, "rwkv6_scan", ("FFMA", "FMUL", "FADD", "LDS", "STS"))))
-    rows.append(check_mamba_scan(rng, _kernel_instances(
-        report, "mamba_scan", ("FFMA", "FMUL", "FADD", "MUFU", "LDS",
-                               "SHFL"))))
-    emit({"phase": "kernels", "rows": rows})
+    # the dry run of every cell runs beside the card's phases, in
+    # processes of its own on the host (collected in the dryrun phase)
+    dry = start_dryrun()
+    try:
+        from repro_torch.core.embedding_store import EmbedStoreConfig
+        rng = np.random.default_rng(0)
+        full = paper_tier_config(FULL_SCALE)
+        embed_cfg = EmbedStoreConfig(vocab=EMBED_VOCAB, dim=EMBED_DIM,
+                                     fast_rows=EMBED_FAST_ROWS)
+        rows = [check_clock_update(full, BATCH, rng), check_msc_score(full, rng)]
+        rows += check_tier_compact(full, embed_cfg, rng)
+        rows.append(check_flash_attention(rng, flash_sass))
+        rows.append(check_rwkv6_scan(rng, _kernel_instances(
+            report, "rwkv6_scan", ("FFMA", "FMUL", "FADD", "LDS", "STS"))))
+        rows.append(check_mamba_scan(rng, _kernel_instances(
+            report, "mamba_scan", ("FFMA", "FMUL", "FADD", "MUFU", "LDS",
+                                   "SHFL"))))
+        emit({"phase": "kernels", "rows": rows})
 
-    # the model phases: phi4-mini-3.8b at full width, prefill and serving
-    from repro_torch.configs.base import get_arch
-    from repro_torch.models import model
-    mcfg = get_arch(MODEL)
-    t0 = time.time()
-    params = model.init_params(
-        mcfg, torch.Generator("cuda").manual_seed(MODEL_SEED))
-    torch.cuda.synchronize()
-    t_init = time.time() - t0
-    pre = prefill_phase(params, mcfg)
-    pre["init_params_s"] = t_init
-    emit(pre)
-    srv, b6 = serve_phase(params, mcfg)
-    emit(srv)
-    rows.append({**b6, "instances": paged_sass})
-    del params
-    torch.cuda.empty_cache()
+        # the model phases: phi4-mini-3.8b at full width, prefill and serving
+        from repro_torch.configs.base import get_arch
+        from repro_torch.models import model
+        mcfg = get_arch(MODEL)
+        t0 = time.time()
+        params = model.init_params(
+            mcfg, torch.Generator("cuda").manual_seed(MODEL_SEED))
+        torch.cuda.synchronize()
+        t_init = time.time() - t0
+        pre = prefill_phase(params, mcfg)
+        pre["init_params_s"] = t_init
+        emit(pre)
+        srv, b6 = serve_phase(params, mcfg)
+        emit(srv)
+        rows.append({**b6, "instances": paged_sass})
+        del params
+        torch.cuda.empty_cache()
 
-    # rwkv6-7b at full width: the prefill forward on B8, then the decode
-    rcfg = get_arch(RWKV_MODEL)
-    t0 = time.time()
-    params, us = rwkv_params(rcfg)
-    torch.cuda.synchronize()
-    t_init = time.time() - t0
-    rpre, rtok, rlogits = rwkv_prefill_phase(params, rcfg, us)
-    rpre["init_params_s"] = t_init
-    emit(rpre)
-    emit(rwkv_decode_phase(params, rcfg, rtok, rlogits))
-    del params, us, rtok, rlogits
-    torch.cuda.empty_cache()
+        # rwkv6-7b at full width: the prefill forward on B8, then the decode
+        rcfg = get_arch(RWKV_MODEL)
+        t0 = time.time()
+        params, us = rwkv_params(rcfg)
+        torch.cuda.synchronize()
+        t_init = time.time() - t0
+        rpre, rtok, rlogits = rwkv_prefill_phase(params, rcfg, us)
+        rpre["init_params_s"] = t_init
+        emit(rpre)
+        emit(rwkv_decode_phase(params, rcfg, rtok, rlogits))
+        del params, us, rtok, rlogits
+        torch.cuda.empty_cache()
 
-    # jamba-v0.1-52b at full width, one period: the prefill forward on B9
-    # and B7, then the hybrid decode
-    jcfg = jamba_config()
-    t0 = time.time()
-    params = model.init_params(jcfg, torch.Generator("cuda").manual_seed(
-        JAMBA_SEED))
-    torch.cuda.synchronize()
-    t_init = time.time() - t0
-    jpre, jtok = jamba_prefill_phase(params, jcfg)
-    jpre["init_params_s"] = t_init
-    emit(jpre)
-    emit(jamba_decode_phase(params, jcfg, jtok))
-    del params, jtok
-    torch.cuda.empty_cache()
+        # jamba-v0.1-52b at full width, one period: the prefill forward on B9
+        # and B7, then the hybrid decode
+        jcfg = jamba_config()
+        t0 = time.time()
+        params = model.init_params(jcfg, torch.Generator("cuda").manual_seed(
+            JAMBA_SEED))
+        torch.cuda.synchronize()
+        t_init = time.time() - t0
+        jpre, jtok = jamba_prefill_phase(params, jcfg)
+        jpre["init_params_s"] = t_init
+        emit(jpre)
+        emit(jamba_decode_phase(params, jcfg, jtok))
+        del params, jtok
+        torch.cuda.empty_cache()
 
-    # qwen2-vl-2b at full width: the prefill forward on B7 from patch
-    # embeddings and M-RoPE positions, then serving through the tiered KV
-    # cache (B1-B5, B6 on its live pools)
-    vcfg = get_arch(VLM_MODEL)
-    t0 = time.time()
-    params = model.init_params(vcfg, torch.Generator("cuda").manual_seed(
-        VLM_SEED))
-    torch.cuda.synchronize()
-    t_init = time.time() - t0
-    vpre = vlm_prefill_phase(params, vcfg)
-    vpre["init_params_s"] = t_init
-    emit(vpre)
-    vsrv, _ = serve_phase(params, vcfg, VLM_SERVE_SEED,
-                          shape=VLM_SERVE_SHAPE, phase="vlm_serve")
-    emit(vsrv)
-    del params
-    torch.cuda.empty_cache()
+        # qwen2-vl-2b at full width: the prefill forward on B7 from patch
+        # embeddings and M-RoPE positions, then serving through the tiered KV
+        # cache (B1-B5, B6 on its live pools)
+        vcfg = get_arch(VLM_MODEL)
+        t0 = time.time()
+        params = model.init_params(vcfg, torch.Generator("cuda").manual_seed(
+            VLM_SEED))
+        torch.cuda.synchronize()
+        t_init = time.time() - t0
+        vpre = vlm_prefill_phase(params, vcfg)
+        vpre["init_params_s"] = t_init
+        emit(vpre)
+        vsrv, _ = serve_phase(params, vcfg, VLM_SERVE_SEED,
+                              shape=VLM_SERVE_SHAPE, phase="vlm_serve")
+        emit(vsrv)
+        del params
+        torch.cuda.empty_cache()
 
-    # whisper-small at full width: the encoder-decoder forward on B7, then
-    # the decode from a cross cache the encoder's output fills
-    wcfg = get_arch(WHISPER_MODEL)
-    t0 = time.time()
-    params = model.init_params(wcfg, torch.Generator("cuda").manual_seed(
-        WHISPER_SEED))
-    torch.cuda.synchronize()
-    t_init = time.time() - t0
-    wpre, wbatch, wlogits = whisper_prefill_phase(params, wcfg)
-    wpre["init_params_s"] = t_init
-    emit(wpre)
-    emit(whisper_decode_phase(params, wcfg, wbatch, wlogits))
-    del params, wbatch, wlogits
-    torch.cuda.empty_cache()
+        # whisper-small at full width: the encoder-decoder forward on B7, then
+        # the decode from a cross cache the encoder's output fills
+        wcfg = get_arch(WHISPER_MODEL)
+        t0 = time.time()
+        params = model.init_params(wcfg, torch.Generator("cuda").manual_seed(
+            WHISPER_SEED))
+        torch.cuda.synchronize()
+        t_init = time.time() - t0
+        wpre, wbatch, wlogits = whisper_prefill_phase(params, wcfg)
+        wpre["init_params_s"] = t_init
+        emit(wpre)
+        emit(whisper_decode_phase(params, wcfg, wbatch, wlogits))
+        del params, wbatch, wlogits
+        torch.cuda.empty_cache()
 
-    # gemma3-1b's training at full width through the launcher, on the
-    # plain paths (no kernel has a backward), and its gates
-    emit(train_phase())
-    torch.cuda.empty_cache()
-    line, base = engine_parity(BATCH)
-    emit(line)
-    line, _ = engine_parity(BATCH, quantum=DRAIN_Q, base=base)
-    del base
-    emit(line)
+        # the launch plane: the serving launcher at its defaults, gemma3-1b's
+        # banded prefill at full width, and the dry run's prediction for
+        # that cell held against the card
+        emit(launch_serve_phase())
+        torch.cuda.empty_cache()
+        bpre, params, batch, bcfg, b_fwd_s = banded_prefill_phase()
+        emit(bpre)
+        cell = dryrun_cell_check(bcfg, params, batch, b_fwd_s)
+        del params, batch
+        torch.cuda.empty_cache()
 
-    # main at SCALE, then the same recipe at quantum DRAIN_Q: the end
-    # tier state and every per-op result must be bit-equal
-    small = paper_tier_config(SCALE)
-    rec0, recq = [], []
-    res, db0 = main_path(SCALE, BATCH, SEGMENT, small.key_space // 2,
-                         record=rec0)
-    emit(res)
-    res, dbq = main_path(SCALE, BATCH, SEGMENT, small.key_space // 2,
-                         quantum=DRAIN_Q, record=recq)
-    res["phase"] = "main_quantum"
-    res["tier_leaves_equal_main"] = _same_tier(db0, dbq)
-    res["results_equal_main"] = _same_results(rec0, recq)
-    del db0, dbq, rec0, recq
-    emit(res)
+        # gemma3-1b's training at full width through the launcher, on the
+        # plain paths (no kernel has a backward), and its gates
+        emit(train_phase())
+        torch.cuda.empty_cache()
+        line, base = engine_parity(BATCH)
+        emit(line)
+        line, _ = engine_parity(BATCH, quantum=DRAIN_Q, base=base)
+        del base
+        emit(line)
 
-    # the paper's traffic through run_workload, then three tiers run to
-    # completion and at quantum DRAIN_Q (equal to run to completion)
-    emit(workloads_phase())
-    line, base = three_tier_phase()
-    emit(line)
-    line, _ = three_tier_phase(quantum=DRAIN_Q, base=base)
-    del base
-    emit(line)
-    # the partitioned store: routed batches and one tenant a partition
-    emit(partitioned_phase())
+        # main at SCALE, then the same recipe at quantum DRAIN_Q: the end
+        # tier state and every per-op result must be bit-equal
+        small = paper_tier_config(SCALE)
+        rec0, recq = [], []
+        res, db0 = main_path(SCALE, BATCH, SEGMENT, small.key_space // 2,
+                             record=rec0)
+        emit(res)
+        res, dbq = main_path(SCALE, BATCH, SEGMENT, small.key_space // 2,
+                             quantum=DRAIN_Q, record=recq)
+        res["phase"] = "main_quantum"
+        res["tier_leaves_equal_main"] = _same_tier(db0, dbq)
+        res["results_equal_main"] = _same_results(rec0, recq)
+        del db0, dbq, rec0, recq
+        emit(res)
 
-    # the full-size state, run to completion and at quantum DRAIN_Q; the
-    # two 9 GiB states are compared through per-leaf checksums
-    rec0, recq = [], []
-    full_res, db = main_path(FULL_SCALE, BATCH, FULL_SEGMENT,
-                             FULL_PRELOAD_KEYS,
-                             profile_steps=FULL_PROFILE_STEPS, record=rec0,
-                             pre_batch=FULL_PRELOAD_BATCH)
-    full_res["phase"] = "main_full"
-    full_res["select_range"] = select_range_profile(db)
-    digest = _digest(db.estate.tier)
-    del db
-    emit(full_res)
-    fq_res, db = main_path(FULL_SCALE, BATCH, FULL_SEGMENT,
-                           FULL_PRELOAD_KEYS,
-                           profile_steps=FULL_PROFILE_STEPS,
-                           quantum=DRAIN_Q, record=recq,
-                           pre_batch=FULL_PRELOAD_BATCH)
-    fq_res["phase"] = "main_full_quantum"
-    if _digest(db.estate.tier) != digest:
-        raise AssertionError("main_full_quantum: the end tier state differs "
-                             "from main_full's (per-leaf checksums)")
-    fq_res["tier_leaf_checksums_equal_main_full"] = len(digest)
-    fq_res["results_equal_main_full"] = _same_results(rec0, recq)
-    del db, rec0, recq
-    emit(fq_res)
+        # the paper's traffic through run_workload, then three tiers run to
+        # completion and at quantum DRAIN_Q (equal to run to completion)
+        emit(workloads_phase())
+        line, base = three_tier_phase()
+        emit(line)
+        line, _ = three_tier_phase(quantum=DRAIN_Q, base=base)
+        del base
+        emit(line)
+        # the partitioned store: routed batches and one tenant a partition
+        emit(partitioned_phase())
 
-    emb = embed_phase()
-    emit(emb)
-    emit(embed_phase(steps=EMBED_DIAG_STEPS, tokens=EMBED_DIAG_TOKENS,
-                     diagnose=True))
-    # launches: each kernel's count in the full-size run of its path
-    # (B7: per "cuda" forward of the prefill phase; B8: of rwkv_prefill;
-    # B9: of jamba_prefill; B6: its entry point's call on the serve
-    # phase's live pools)
-    where = {"clock_update": full_res, "msc_score": full_res,
-             "select_gather_rows": fq_res, "scatter_rows": fq_res,
-             "gather_rows": emb["cuda"]}
-    for r in rows:
-        if r["name"] == "flash_attention":
-            r["launches"] = pre["cuda"]["flash_attention_launches_per_forward"]
-        elif r["name"] == "rwkv6_scan":
-            r["launches"] = rpre["cuda"]["rwkv6_scan_launches_per_forward"]
-        elif r["name"] == "mamba_scan":
-            r["launches"] = jpre["cuda"]["mamba_scan_launches_per_forward"]
-        elif r["name"] != "paged_attention":
-            r["launches"] = where[r["name"]]["launches"][r["name"]]
-    emit({"phase": "done", "elapsed_s": time.time() - t_start})
-    emit({"kernels": [{k: r[k] for k in (
-        "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for r in rows]})
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+        # the full-size state, run to completion and at quantum DRAIN_Q; the
+        # two 9 GiB states are compared through per-leaf checksums
+        rec0, recq = [], []
+        full_res, db = main_path(FULL_SCALE, BATCH, FULL_SEGMENT,
+                                 FULL_PRELOAD_KEYS,
+                                 profile_steps=FULL_PROFILE_STEPS, record=rec0,
+                                 pre_batch=FULL_PRELOAD_BATCH)
+        full_res["phase"] = "main_full"
+        full_res["select_range"] = select_range_profile(db)
+        digest = _digest(db.estate.tier)
+        del db
+        emit(full_res)
+        fq_res, db = main_path(FULL_SCALE, BATCH, FULL_SEGMENT,
+                               FULL_PRELOAD_KEYS,
+                               profile_steps=FULL_PROFILE_STEPS,
+                               quantum=DRAIN_Q, record=recq,
+                               pre_batch=FULL_PRELOAD_BATCH)
+        fq_res["phase"] = "main_full_quantum"
+        if _digest(db.estate.tier) != digest:
+            raise AssertionError("main_full_quantum: the end tier state differs "
+                                 "from main_full's (per-leaf checksums)")
+        fq_res["tier_leaf_checksums_equal_main_full"] = len(digest)
+        fq_res["results_equal_main_full"] = _same_results(rec0, recq)
+        del db, rec0, recq
+        emit(fq_res)
 
+        emb = embed_phase()
+        emit(emb)
+        emit(embed_phase(steps=EMBED_DIAG_STEPS, tokens=EMBED_DIAG_TOKENS,
+                         diagnose=True))
+        # launches: each kernel's count in the full-size run of its path
+        # (B7: per "cuda" forward of the prefill phase; B8: of rwkv_prefill;
+        # B9: of jamba_prefill; B6: its entry point's call on the serve
+        # phase's live pools)
+        where = {"clock_update": full_res, "msc_score": full_res,
+                 "select_gather_rows": fq_res, "scatter_rows": fq_res,
+                 "gather_rows": emb["cuda"]}
+        for r in rows:
+            if r["name"] == "flash_attention":
+                r["launches"] = pre["cuda"]["flash_attention_launches_per_forward"]
+            elif r["name"] == "rwkv6_scan":
+                r["launches"] = rpre["cuda"]["rwkv6_scan_launches_per_forward"]
+            elif r["name"] == "mamba_scan":
+                r["launches"] = jpre["cuda"]["mamba_scan_launches_per_forward"]
+            elif r["name"] != "paged_attention":
+                r["launches"] = where[r["name"]]["launches"][r["name"]]
+        emit(dryrun_phase(dry, cell))
+        emit({"phase": "done", "elapsed_s": time.time() - t_start})
+        emit({"kernels": [{k: r[k] for k in (
+            "name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in rows]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
+    finally:
+        stop_dryrun(dry)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,6 +1,7 @@
 """Model configuration schema and registry (the port's own copy of the
 JAX package's ``configs/base.py``): ``ModelConfig``, ``get_arch`` and
-``reduced``, the tiny same-family config of the CPU tests.
+``reduced``, the tiny same-family config of the CPU tests, and the dry
+run's cells: ``ShapeConfig``, ``SHAPES`` and ``applicable_shapes``.
 
 All ten of the JAX package's architectures are registered: the dense
 phi4-mini-3.8b, gemma3-1b, stablelm-12b and starcoder2-15b; the moe
@@ -76,6 +77,21 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 _REGISTRY: dict = {}
 
 
@@ -128,3 +144,11 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         window_pattern=tuple(min(w, 8) if w > 0 else w
                              for w in cfg.window_pattern),
     )
+
+
+def applicable_shapes(cfg: ModelConfig) -> list:
+    """The (arch x shape) cells this arch runs: every shape, but
+    ``long_500k`` only for the sub-quadratic archs
+    (``long_context_ok``)."""
+    return [s for s in SHAPES.values()
+            if s.name != "long_500k" or cfg.long_context_ok]

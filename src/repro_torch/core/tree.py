@@ -24,16 +24,29 @@ def leaves(tree) -> Iterator:
         yield tree
 
 
-def map_tree(fn: Callable, tree, *rest):
+def is_spec(x) -> bool:
+    """A logical or mesh spec: a plain tuple of axis names or None (the
+    empty tuple of a scalar included), a leaf of a spec tree."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        isinstance(e, (str, type(None))) for e in x)
+
+
+def map_tree(fn: Callable, tree, *rest, is_leaf: Callable | None = None):
     """``fn`` applied leaf by leaf to ``tree`` and the trees ``rest`` of
-    the same structure; returns a tree of that structure."""
+    the same structure; returns a tree of that structure.  ``is_leaf``
+    marks nodes of ``tree`` taken whole as leaves (``is_spec`` for a tree
+    of specs, whose leaves are tuples)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v, *(r[k] for r in rest))
+        return {k: map_tree(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[map_tree(fn, *xs) for xs in zip(tree, *rest)])
+        return type(tree)(*[map_tree(fn, *xs, is_leaf=is_leaf)
+                            for xs in zip(tree, *rest)])
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_tree(fn, *xs) for xs in zip(tree, *rest))
+        return type(tree)(map_tree(fn, *xs, is_leaf=is_leaf)
+                          for xs in zip(tree, *rest))
     if tree is None:
         return None
     return fn(tree, *rest)

@@ -6,12 +6,14 @@ Sharding constraints (``constrain``) have no counterpart: the port runs
 on one device.  ``attention`` takes its window as a Python int, so
 backend "cuda" runs the flash_attention kernel (B7) in every layer,
 windowed or global, causal or not.  Cross-attention is plain PyTorch, as
-the JAX package computes it outside any kernel.  Banded attention waits
-for the dry run that uses it (ROADMAP Queue 1, G).
+the JAX package computes it outside any kernel, and so is
+``banded_attention``, the S x 2w band that the banded forward gives the
+local layers (``model._forward_banded``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import mha
@@ -21,16 +23,18 @@ from repro_torch.models.common import ParamInit, apply_m_rope, apply_rope
 def init_attention(pi: ParamInit, cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     tree = {
-        "wq": pi.dense((d, cfg.n_heads, hd)),
-        "wk": pi.dense((d, cfg.n_kv_heads, hd)),
-        "wv": pi.dense((d, cfg.n_kv_heads, hd)),
-        "wo": pi.dense((cfg.n_heads, hd, d),
+        "wq": pi.dense((d, cfg.n_heads, hd), ("embed", "heads", "head_dim")),
+        "wk": pi.dense((d, cfg.n_kv_heads, hd),
+                       ("embed", "kv_heads", "head_dim")),
+        "wv": pi.dense((d, cfg.n_kv_heads, hd),
+                       ("embed", "kv_heads", "head_dim")),
+        "wo": pi.dense((cfg.n_heads, hd, d), ("heads", "head_dim", "embed"),
                        scale=1.0 / (cfg.n_heads * hd) ** 0.5),
     }
     if cfg.qkv_bias:
-        tree["bq"] = pi.zeros((cfg.n_heads, hd))
-        tree["bk"] = pi.zeros((cfg.n_kv_heads, hd))
-        tree["bv"] = pi.zeros((cfg.n_kv_heads, hd))
+        tree["bq"] = pi.zeros((cfg.n_heads, hd), ("heads", "head_dim"))
+        tree["bk"] = pi.zeros((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"))
+        tree["bv"] = pi.zeros((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"))
     return tree
 
 
@@ -85,6 +89,43 @@ def attention(params, cfg: ModelConfig, x, positions, window: int, *,
         o = _masked_attention(q, k, v, pos1d, window, causal)
     else:
         o = mha(q, k, v, causal=causal, window=int(window), backend=backend)
+    return _out(o, params["wo"])
+
+
+def banded_attention(params, cfg: ModelConfig, x, positions, window: int):
+    """Causal local attention computed in a 2w band (the JAX package's
+    ``banded_attention``): the rows padded to a multiple of w, query
+    block i attends key blocks {i-1, i}, masked to the w keys at or
+    before each query, so the scores are S x 2w instead of S x S.  Plain
+    PyTorch, float32 scores.  Assumes contiguous positions (0, 1, ...,
+    S - 1 in every row): the mask reads row offsets, not ``positions``,
+    which only rotate q and k."""
+    q, k, v = _qkv(params, cfg, x, positions)
+    b, hq, s, hd = q.shape
+    hkv = k.shape[1]
+    w = int(window)
+    pad = (-s) % w
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+    nb = (s + pad) // w
+    qb = (q.to(torch.float32) * hd ** -0.5) \
+        .reshape(b, hkv, hq // hkv, nb, w, hd)
+
+    def band(t):                      # [b, hkv, nb, 2w, hd]: blocks i-1, i
+        t = t.to(torch.float32).reshape(b, hkv, nb, w, hd)
+        prev = torch.cat([torch.zeros_like(t[:, :, :1]), t[:, :, :-1]], 2)
+        return torch.cat([prev, t], dim=3)
+
+    sc = qb @ band(k)[:, :, None].transpose(-1, -2)   # [b,hkv,g,nb,w,2w]
+    r = torch.arange(w, device=x.device)[:, None]
+    j = torch.arange(2 * w, device=x.device)[None, :]
+    rel = j - (r + w)                                  # kpos - qpos
+    mask = (rel <= 0) & (rel > -w)
+    first = torch.arange(nb, device=x.device)[:, None, None] == 0
+    mask = mask[None] & ~(first & (j[None] < w))       # block 0: no prev
+    sc = torch.where(mask, sc, -1e30)
+    o = torch.softmax(sc, dim=-1) @ band(v)[:, :, None]
+    o = o.reshape(b, hq, s + pad, hd)[:, :, :s].to(x.dtype)
     return _out(o, params["wo"])
 
 

@@ -4,10 +4,14 @@ port's own copy of the JAX package's ``models/common.py``).
 Parameters are plain nested dicts of tensors in the JAX package's layouts
 (``wq`` [D, Hq, hd], ``wo`` [Hq, hd, D], ``w_gate`` [D, F], ...), so the
 tests can carry the JAX package's parameters across (``model.
-params_from_numpy``).  There are no logical-axis specs: the port runs on
-one device, with no mesh.  ``init_params`` draws from an explicit
-``torch.Generator`` with the JAX ``ParamFactory``'s shapes and scales;
-the draws are not ``jax.random``'s bits.
+params_from_numpy``).  Every init call names its leaf's logical axes, as
+the JAX ``ParamFactory`` does: ``ParamInit`` draws the tensor and drops
+them, ``SpecInit`` returns them instead, so one init function gives both
+the parameters (``model.init_params``) and their logical-axis specs
+(``model.param_specs``), which ``distributed/sharding.py`` maps onto a
+mesh.  ``init_params`` draws from an explicit ``torch.Generator`` with
+the JAX ``ParamFactory``'s shapes and scales; the draws are not
+``jax.random``'s bits.
 """
 from __future__ import annotations
 
@@ -21,11 +25,13 @@ import torch.nn.functional as F
 
 class ParamInit:
     """Draws parameters on ``device`` from ``generator`` (which must live
-    on that device): dense weights N(0, 1) / sqrt(fan_in) unless a scale
-    is given, embeddings N(0, 1) * 0.02, norms one, biases zero."""
+    on that device; None on the meta device): dense weights N(0, 1) /
+    sqrt(fan_in) unless a scale is given, embeddings N(0, 1) * 0.02,
+    norms one, biases zero.  ``logical`` (the leaf's logical axis names)
+    is not read: ``SpecInit`` returns it."""
 
-    def __init__(self, generator: torch.Generator, device: torch.device,
-                 dtype=torch.float32):
+    def __init__(self, generator: torch.Generator | None,
+                 device: torch.device, dtype=torch.float32):
         self.gen, self.device, self.dtype = generator, device, dtype
 
     def _normal(self, shape, scale: float) -> torch.Tensor:
@@ -33,41 +39,64 @@ class ParamInit:
                         dtype=self.dtype)
         return w.mul_(scale)
 
-    def dense(self, shape, scale: float | None = None) -> torch.Tensor:
+    def dense(self, shape, logical, scale: float | None = None):
         return self._normal(shape, scale if scale is not None
                             else 1.0 / math.sqrt(shape[0]))
 
-    def embed(self, shape, scale: float = 0.02) -> torch.Tensor:
+    def embed(self, shape, logical, scale: float = 0.02):
         return self._normal(shape, scale)
 
-    def zeros(self, shape) -> torch.Tensor:
+    def zeros(self, shape, logical):
         return torch.zeros(shape, device=self.device, dtype=self.dtype)
 
-    def ones(self, shape) -> torch.Tensor:
+    def ones(self, shape, logical):
         return torch.ones(shape, device=self.device, dtype=self.dtype)
 
-    def full(self, shape, value: float) -> torch.Tensor:
+    def full(self, shape, value: float, logical):
         return torch.full(shape, value, device=self.device, dtype=self.dtype)
 
-    def const(self, value: torch.Tensor) -> torch.Tensor:
+    def const(self, value: torch.Tensor, logical):
         """A copy of ``value`` in the init's dtype, on its device."""
         return value.to(device=self.device, dtype=self.dtype).clone()
 
 
+class SpecInit:
+    """``ParamInit``'s interface, returning each leaf's logical axis names
+    (a tuple of str or None, one per dimension) instead of a tensor."""
+
+    def dense(self, shape, logical, scale=None):
+        return tuple(logical)
+
+    def embed(self, shape, logical, scale=None):
+        return tuple(logical)
+
+    def zeros(self, shape, logical):
+        return tuple(logical)
+
+    ones = zeros
+
+    def full(self, shape, value, logical):
+        return tuple(logical)
+
+    def const(self, value, logical):
+        return tuple(logical)
+
+
 def init_ffn(pi: ParamInit, d_model: int, d_ff: int, kind: str) -> dict:
     if kind == "swiglu":
-        return {"w_gate": pi.dense((d_model, d_ff)),
-                "w_up": pi.dense((d_model, d_ff)),
-                "w_down": pi.dense((d_ff, d_model))}
-    return {"w_up": pi.dense((d_model, d_ff)), "b_up": pi.zeros((d_ff,)),
-            "w_down": pi.dense((d_ff, d_model)),
-            "b_down": pi.zeros((d_model,))}
+        return {"w_gate": pi.dense((d_model, d_ff), ("embed", "mlp")),
+                "w_up": pi.dense((d_model, d_ff), ("embed", "mlp")),
+                "w_down": pi.dense((d_ff, d_model), ("mlp", "embed"))}
+    return {"w_up": pi.dense((d_model, d_ff), ("embed", "mlp")),
+            "b_up": pi.zeros((d_ff,), ("mlp",)),
+            "w_down": pi.dense((d_ff, d_model), ("mlp", "embed")),
+            "b_down": pi.zeros((d_model,), ("embed",))}
 
 
 def init_norm(pi: ParamInit, d: int, kind: str) -> dict:
     if kind == "rms":
-        return {"w": pi.ones((d,))}
-    return {"w": pi.ones((d,)), "b": pi.zeros((d,))}
+        return {"w": pi.ones((d,), ("embed",))}
+    return {"w": pi.ones((d,), ("embed",)), "b": pi.zeros((d,), ("embed",))}
 
 
 # ------------------------------------------------------------------- norms

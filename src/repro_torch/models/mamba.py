@@ -23,15 +23,15 @@ def init_mamba_layer(pi: ParamInit, cfg: ModelConfig) -> dict:
     dt_rank = max(d // 16, 8)
     a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32))
     return {
-        "in_proj": pi.dense((d, 2 * di)),
-        "conv_w": pi.dense((cfg.ssm_conv, di), scale=0.5),
-        "conv_b": pi.zeros((di,)),
-        "x_proj": pi.dense((di, dt_rank + 2 * n)),
-        "dt_proj_w": pi.dense((dt_rank, di)),
-        "dt_proj_b": pi.full((di,), -4.6),          # softplus ~ 0.01
-        "a_log": pi.const(a_log.expand(di, n)),
-        "d": pi.ones((di,)),
-        "out_proj": pi.dense((di, d)),
+        "in_proj": pi.dense((d, 2 * di), ("embed", "mlp")),
+        "conv_w": pi.dense((cfg.ssm_conv, di), (None, "mlp"), scale=0.5),
+        "conv_b": pi.zeros((di,), ("mlp",)),
+        "x_proj": pi.dense((di, dt_rank + 2 * n), ("mlp", None)),
+        "dt_proj_w": pi.dense((dt_rank, di), (None, "mlp")),
+        "dt_proj_b": pi.full((di,), -4.6, ("mlp",)),   # softplus ~ 0.01
+        "a_log": pi.const(a_log.expand(di, n), ("mlp", None)),
+        "d": pi.ones((di,), ("mlp",)),
+        "out_proj": pi.dense((di, d), ("mlp", "embed")),
     }
 
 

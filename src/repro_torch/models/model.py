@@ -27,8 +27,20 @@ block runs under ``torch.utils.checkpoint``, as the JAX package wraps
 its scanned blocks in ``jax.checkpoint``.  The decode paths run under
 ``torch.no_grad``.
 
-``banded_local`` (the dry run's banded attention) raises
-``NotImplementedError`` naming its ROADMAP item.
+With ``banded_local`` (the dry run's opt variant) and a window pattern
+that mixes windows, the uniform families take ``_forward_banded``: the
+layers in superblocks of ``len(window_pattern)`` (each recomputed whole
+with ``remat``, as JAX checkpoints its scanned superblock) plus the
+tail; each local layer takes ``attention.banded_attention``, the S x 2w
+band, plain PyTorch as in the JAX package, which assumes contiguous
+positions; each global layer takes ``attention.attention`` on the
+backend (B7 on "cuda").  The hybrid family ignores ``banded_local``, as
+in JAX.
+
+``param_specs`` and ``cache_specs`` give the logical-axis specs of the
+parameters and the decode cache without a tensor: the specs JAX's
+``init_params`` and ``init_cache`` return beside their arrays, the
+parameters' in the port's per-layer tree (no "layers" axis).
 """
 from __future__ import annotations
 
@@ -43,22 +55,17 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.common import (ParamInit, ffn, init_ffn, init_norm,
-                                       norm)
+from repro_torch.models.common import (ParamInit, SpecInit, ffn, init_ffn,
+                                       init_norm, norm)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run: an unknown family, and the
-    banded attention of ``banded_local``."""
+    """Raise for what the port does not run: an unknown family."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.name}: unknown family "
                                   f"{cfg.family!r}")
-    if cfg.banded_local:
-        raise NotImplementedError(
-            f"{cfg.name}: banded_local attention is not ported yet "
-            "(ROADMAP Queue 1, G: it comes with the dry run)")
 
 
 def layer_plan(cfg: ModelConfig) -> list:
@@ -94,16 +101,13 @@ def _init_block(pi: ParamInit, cfg: ModelConfig, kind: str,
     return tree
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.float32, device=None) -> dict:
-    """Random parameters with the JAX ``init_params``'s shapes and scales,
-    drawn from ``generator`` on ``device`` (None: the card; raises without
-    one).  The generator must live on that device."""
-    check_supported(cfg)
-    pi = ParamInit(generator, resolve_device(device), dtype)
-    params = {"embed": pi.embed((cfg.vocab, cfg.d_model))}
+def _build_params(cfg: ModelConfig, pi) -> dict:
+    """The parameter tree, each leaf from ``pi`` (a ``ParamInit``: tensors;
+    a ``SpecInit``: logical specs)."""
+    params = {"embed": pi.embed((cfg.vocab, cfg.d_model), ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = pi.dense((cfg.d_model, cfg.vocab))
+        params["lm_head"] = pi.dense((cfg.d_model, cfg.vocab),
+                                     ("embed", "vocab"))
     params["final_norm"] = init_norm(pi, cfg.d_model, cfg.norm_kind)
     params["blocks"] = [_init_block(pi, cfg, kind, use_moe)
                         for kind, use_moe, _ in layer_plan(cfg)]
@@ -115,6 +119,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             blk["ln_cross"] = init_norm(pi, cfg.d_model, cfg.norm_kind)
         params["enc_final_norm"] = init_norm(pi, cfg.d_model, cfg.norm_kind)
     return params
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None,
+                dtype=torch.float32, device=None) -> dict:
+    """Random parameters with the JAX ``init_params``'s shapes and scales,
+    drawn from ``generator`` on ``device`` (None: the card; raises without
+    one).  The generator must live on that device (None on "meta", where
+    the tensors hold no values)."""
+    check_supported(cfg)
+    return _build_params(cfg, ParamInit(generator, resolve_device(device),
+                                        dtype))
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The logical-axis spec of every parameter, in the tree
+    ``init_params`` returns (each block its own dict, so no "layers"
+    axis: JAX stacks the blocks and puts "layers" first)."""
+    check_supported(cfg)
+    return _build_params(cfg, SpecInit())
 
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
@@ -155,12 +178,17 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> dict:
 # ---------------------------------------------------------------- forward
 
 def _block_apply(cfg: ModelConfig, p, x, positions, window: int,
-                 kind: str, use_moe: bool, backend: str):
+                 kind: str, use_moe: bool, backend: str,
+                 banded: bool = False):
     """One block.  Returns (x, extras): the MoE layer's ``aux_loss``,
     ``dropped`` and ``experts`` (each token's top-k) when ``use_moe``,
-    else {}."""
+    else {}.  ``banded``: a windowed attention layer takes the S x 2w
+    band (``attention.banded_attention``)."""
     h = norm(p["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    if kind == "attn":
+    if kind == "attn" and banded and window > 0:
+        mix = attn_mod.banded_attention(p["mixer"], cfg, h, positions,
+                                        window)
+    elif kind == "attn":
         mix = attn_mod.attention(p["mixer"], cfg, h, positions, window,
                                  backend=backend)
     elif kind == "mamba":
@@ -229,6 +257,9 @@ def forward(cfg: ModelConfig, params, batch: dict, *,
     positions = batch.get("positions")
     if positions is None:
         positions = _arange_positions(*x.shape[:2], x.device)
+    if (cfg.family != "hybrid" and cfg.banded_local
+            and len(set(cfg.window_pattern)) > 1):
+        return _forward_banded(cfg, params, x, positions, backend, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, (kind, use_moe, window) in zip(params["blocks"],
                                           layer_plan(cfg)):
@@ -238,6 +269,43 @@ def forward(cfg: ModelConfig, params, batch: dict, *,
             aux = aux + extras["aux_loss"].to(torch.float32)
     x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
     return _lm_logits(cfg, params, x), aux
+
+
+def _banded_layers(cfg: ModelConfig, blocks, x, positions, lo: int,
+                   backend: str):
+    """Layers lo, lo + 1, ... (one per block of ``blocks``) of the banded
+    forward.  Returns (x, the float32 sum of their MoE aux losses)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    plan = layer_plan(cfg)
+    for l, p in enumerate(blocks, lo):
+        kind, use_moe, window = plan[l]
+        x, extras = _block_apply(cfg, p, x, positions, window, kind,
+                                 use_moe, backend, banded=True)
+        if use_moe:
+            aux = aux + extras["aux_loss"].to(torch.float32)
+    return x, aux
+
+
+def _forward_banded(cfg: ModelConfig, params, x, positions, backend: str,
+                    remat: bool):
+    """JAX's ``_forward_banded``: n_full superblocks of
+    ``len(window_pattern)`` layers (each recomputed whole in the backward
+    pass with ``remat``), then the tail layers; local layers take the
+    band (contiguous positions assumed), global ones ``attention`` on the
+    backend.  Returns (logits, aux)."""
+    period = len(cfg.window_pattern)
+    n_full = cfg.n_layers // period
+    blocks = params["blocks"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for sb in range(n_full):
+        lo = sb * period
+        x, a = _remat(remat, _banded_layers, cfg, blocks[lo:lo + period], x,
+                      positions, lo, backend)
+        aux = aux + a
+    x, a = _banded_layers(cfg, blocks[n_full * period:], x, positions,
+                          n_full * period, backend)
+    x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+    return _lm_logits(cfg, params, x), aux + a
 
 
 def _enc_block(cfg: ModelConfig, blk, x, pos, backend: str):
@@ -347,6 +415,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                cfg.head_dim)
         cache["cross_k"], cache["cross_v"] = zeros(xkv), zeros(xkv)
     return cache
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    """The logical-axis specs of ``init_cache``'s tree (JAX's, as its
+    ``init_cache`` returns them)."""
+    check_supported(cfg)
+    kv = ("layers", "batch", "kv_heads", "cache_seq", "cache_head_dim")
+    if cfg.family == "ssm":
+        return {"wkv": ("layers", "batch", "heads", None, None),
+                "last_tm": ("layers", "batch", "embed"),
+                "last_cm": ("layers", "batch", "embed")}
+    if cfg.family == "hybrid":
+        hkv = ("layers", None, *kv[1:])
+        return {"k": hkv, "v": hkv,
+                "ssm_h": ("layers", None, "batch", "mlp", None),
+                "conv": ("layers", None, "batch", None, "mlp")}
+    specs = {"k": kv, "v": kv}
+    if cfg.family == "audio":
+        cross = ("layers", "batch", "kv_heads", None, "cache_head_dim")
+        specs["cross_k"] = specs["cross_v"] = cross
+    return specs
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *,

@@ -36,10 +36,10 @@ def init_moe(pi: ParamInit, cfg: ModelConfig) -> dict:
     e = cfg.n_experts_padded or cfg.n_experts
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "router": pi.dense((d, e), scale=0.02),
-        "w_gate": pi.dense((e, d, f)),
-        "w_up": pi.dense((e, d, f)),
-        "w_down": pi.dense((e, f, d)),
+        "router": pi.dense((d, e), ("embed", "expert"), scale=0.02),
+        "w_gate": pi.dense((e, d, f), ("expert", "embed", "mlp")),
+        "w_up": pi.dense((e, d, f), ("expert", "embed", "mlp")),
+        "w_down": pi.dense((e, f, d), ("expert", "mlp", "embed")),
     }
 
 
@@ -86,7 +86,10 @@ def moe_ffn_rowwise(params, cfg: ModelConfig, x):
 
     # load-balancing aux loss (Switch-style)
     me = torch.mean(probs.reshape(-1, e), dim=0)
-    ce = torch.mean(F.one_hot(top_e[..., 0].reshape(-1), e)
+    # one-hot by comparison: F.one_hot reads the indices' range back to
+    # the host on the CPU, and cannot on the meta device
+    first = top_e[..., 0].reshape(-1, 1)
+    ce = torch.mean((first == torch.arange(e, device=dev))
                     .to(torch.float32), dim=0)
     aux = torch.sum(me * ce) * e
 

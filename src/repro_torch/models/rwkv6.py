@@ -28,26 +28,28 @@ def init_rwkv_layer(pi: ParamInit, cfg: ModelConfig) -> dict:
     return {
         "time_mix": {
             # token-shift base mix per stream (r, k, v, w, g)
-            "mix_base": pi.zeros((5, d)),
-            "mix_lora_a": pi.dense((d, 5 * MIX_LORA_R), scale=0.01),
-            "mix_lora_b": pi.dense((5 * MIX_LORA_R, 5 * d), scale=0.01),
-            "wr": pi.dense((d, d)),
-            "wk": pi.dense((d, d)),
-            "wv": pi.dense((d, d)),
-            "wg": pi.dense((d, d)),
-            "wo": pi.dense((d, d)),
-            "w0": pi.full((d,), -4.0),
-            "w_lora_a": pi.dense((d, LORA_R), scale=0.01),
-            "w_lora_b": pi.dense((LORA_R, d), scale=0.01),
-            "u": pi.zeros((h, hd)),
-            "ln_w": pi.ones((d,)),
-            "ln_b": pi.zeros((d,)),
+            "mix_base": pi.zeros((5, d), ("stack", "embed")),
+            "mix_lora_a": pi.dense((d, 5 * MIX_LORA_R), ("embed", None),
+                                   scale=0.01),
+            "mix_lora_b": pi.dense((5 * MIX_LORA_R, 5 * d), (None, None),
+                                   scale=0.01),
+            "wr": pi.dense((d, d), ("embed", "heads")),
+            "wk": pi.dense((d, d), ("embed", "heads")),
+            "wv": pi.dense((d, d), ("embed", "heads")),
+            "wg": pi.dense((d, d), ("embed", "heads")),
+            "wo": pi.dense((d, d), ("heads", "embed")),
+            "w0": pi.full((d,), -4.0, ("embed",)),
+            "w_lora_a": pi.dense((d, LORA_R), ("embed", None), scale=0.01),
+            "w_lora_b": pi.dense((LORA_R, d), (None, "embed"), scale=0.01),
+            "u": pi.zeros((h, hd), ("heads", "head_dim")),
+            "ln_w": pi.ones((d,), ("embed",)),
+            "ln_b": pi.zeros((d,), ("embed",)),
         },
         "channel_mix": {
-            "mix_k": pi.zeros((d,)),
-            "wk": pi.dense((d, f)),
-            "wv": pi.dense((f, d)),
-            "wr": pi.dense((d, d)),
+            "mix_k": pi.zeros((d,), ("embed",)),
+            "wk": pi.dense((d, f), ("embed", "mlp")),
+            "wv": pi.dense((f, d), ("mlp", "embed")),
+            "wr": pi.dense((d, d), ("embed", "embed")),
         },
     }
 

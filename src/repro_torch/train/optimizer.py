@@ -8,8 +8,8 @@
 which rounds differently.)  The update is written leaf by leaf and runs
 IN PLACE: the parameters and the moments given are the ones returned.
 The schedule and the step counter stay on the device, so a step reads
-nothing back to the host.  ZeRO-1's ``moment_specs`` needs
-``distributed/sharding.py``, which the port does not have yet.
+nothing back to the host.  ``moment_specs`` gives the moments' logical
+specs under ZeRO-1.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core.tree import leaves, map_tree
+from repro_torch.core.tree import is_spec, leaves, map_tree
 
 
 class AdamWConfig(NamedTuple):
@@ -95,3 +95,19 @@ def apply(cfg: AdamWConfig, params, grads, opt: OptState):
     map_tree(upd, params, grads, opt.m, opt.v)     # leaves matched by key
     return params, OptState(step, opt.m, opt.v), {"grad_norm": gnorm,
                                                   "lr": lr}
+
+
+def moment_specs(param_specs):
+    """ZeRO-1: each moment takes its parameter's logical spec with the
+    first dimension (after a leading "layers" or "stack") that has no
+    logical name given the ``zero`` axis, which the rules map to
+    'data'."""
+    def one(spec):
+        out = list(spec)
+        if out and out[0] is None:
+            out[0] = "zero"
+        elif out and out[0] in ("layers", "stack") and len(out) > 1 \
+                and out[1] is None:
+            out[1] = "zero"
+        return tuple(out)
+    return map_tree(one, param_specs, is_leaf=is_spec)

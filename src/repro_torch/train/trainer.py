@@ -10,8 +10,8 @@ Pallas kernel of the JAX package has a VJP.  Micro-batches accumulate as
 JAX's scan does: the sum of the per-micro-batch gradients over n, and
 the loss likewise.  The step updates the state's tensors IN PLACE (it
 consumes its input state, as the engine steps do); ``clone_state``
-keeps a copy.  ``state_specs`` (the mesh layout) waits for
-``distributed/sharding.py``.
+keeps a copy.  ``state_specs`` gives the state's logical specs (the
+moments and the residual ZeRO-1 sharded).
 """
 from __future__ import annotations
 
@@ -52,6 +52,18 @@ def init_state(mcfg: ModelConfig, tcfg: TrainConfig,
     ef = collectives.init_error_feedback(params) if tcfg.compress_grads \
         else None
     return TrainState(params, opt_mod.init(params), ef)
+
+
+def state_specs(param_specs, tcfg: TrainConfig) -> TrainState:
+    """The logical specs of a ``TrainState`` whose parameters have
+    ``param_specs``: the moments and the error-feedback residual (with
+    ``compress_grads``) take ``optimizer.moment_specs``; the step is a
+    scalar."""
+    mspec = opt_mod.moment_specs(param_specs)
+    return TrainState(
+        params=param_specs,
+        opt=opt_mod.OptState(step=(), m=mspec, v=mspec),
+        ef=collectives.EFState(mspec) if tcfg.compress_grads else None)
 
 
 def state_from_numpy(mcfg: ModelConfig, tree, device=None) -> TrainState:

@@ -280,19 +280,21 @@ def test_reference_fault_pallas_forward_raises(name):
         JM.forward(jcfg, jp, batch, backend="pallas")
 
 
-def test_banded_local_raises():
-    """Banded attention (``banded_local``, set only by the JAX package's
-    dry run) is not ported: every entry point that takes a config
-    raises, naming its ROADMAP item; the other fields pass."""
-    cfg = reduced(get_arch("gemma3-1b"))
+def test_check_supported_accepts_banded_local():
+    """Banded attention (``banded_local``, set by the dry run's opt
+    variant) is ported: ``check_supported`` and the entry points that take
+    a config accept it (tests/test_torch_banded.py holds it to JAX); an
+    unknown family still raises."""
+    cfg = reduced(get_arch("gemma3-1b")).replace(banded_local=True)
     model.check_supported(cfg)
-    banded = cfg.replace(banded_local=True)
-    for fn in (lambda: model.init_params(banded, torch.Generator(),
-                                         device="cpu"),
-               lambda: model.init_cache(banded, 1, 8, device="cpu"),
-               lambda: model.forward(banded, {}, {})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    p = model.init_params(cfg, torch.Generator(), device="cpu")
+    assert model.init_cache(cfg, 1, 8, device="cpu")["k"].shape[0] == \
+        cfg.n_layers
+    logits, _ = model.forward(cfg, p, {"tokens": torch.zeros(
+        1, 12, dtype=torch.int64)})
+    assert logits.shape == (1, 12, cfg.vocab)
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        model.check_supported(cfg.replace(family="diffusion"))
 
 
 # ------------------------------------------------------------------ rwkv6

@@ -116,14 +116,40 @@ def _check_conservation(db: PrismDB, kw):
     snap = db.obs_snapshot()
     c = db.counters
     cbb = c["comp_by_boundary"]
-    assert snap["ev_jobs_b"].tolist() == cbb
-    assert snap["ev_jobs"] == c["compactions"] == sum(cbb)
+    assert snap["ev_jobs_b"].tolist() == cbb, (snap["ev_jobs_b"], cbb)
+    assert snap["ev_jobs"] == c["compactions"] == sum(cbb), \
+        (snap["ev_jobs"], c["compactions"], cbb)
     assert min(cbb) > 0, cbb
     for tier, cap in enumerate(kw["tier_slots"]):
         used = int((db.state.keys[tier] >= 0).sum())
-        assert 0 < used <= cap
+        assert 0 < used <= cap, (tier, used, cap)
         occ = float(tiers.tier_occupancy(db.state, tier))
-        assert occ == np.float32(used) / np.float32(cap)
+        assert occ == np.float32(used) / np.float32(cap), (tier, occ, used)
+
+
+def _assert_steps_equal(jst, st):
+    """Every ``StepStats`` field bit-equal to JAX's, step by step: a
+    mismatch names the field and the first step that differs."""
+    for f in W.StepStats._fields:
+        a, b = np.asarray(getattr(jst, f)), getattr(st, f).numpy()
+        assert (a.dtype, a.shape) == (b.dtype, b.shape), (f, a.dtype,
+                                                          b.dtype)
+        for i in range(a.shape[0]):
+            assert_bit_equal(a[i], b[i], f"StepStats.{f} at step {i}")
+
+
+def _assert_final_equal(jdb: JDB, db: PrismDB, jstate, n_steps: int):
+    """The engine state after the last step, every leaf (named in the
+    message) bit-equal but FLOAT_TOL's, then the counters (the ones that
+    differ named)."""
+    try:
+        assert_trees_equal(jstate, engine.state_to_numpy(db.estate),
+                           FLOAT_TOL)
+    except AssertionError as e:
+        raise AssertionError(f"state after step {n_steps - 1}: {e}") \
+            from None
+    jc, c = jdb.counters, db.counters
+    assert c == jc, {k: (jc[k], c.get(k)) for k in jc if c.get(k) != jc[k]}
 
 
 # ------------------------------------------------------------- two tiers
@@ -191,11 +217,8 @@ def test_tiers_match_jax_on_a_preloaded_workload(kw, cost, quantum, backend):
         db.put(k)
     db.reset_workload(seed=1)
     st = db.run_workload(W.ycsb("A"), 16, 64)
-    for f in W.StepStats._fields:
-        assert_bit_equal(np.asarray(getattr(jst, f)),
-                         getattr(st, f).numpy(), f)
-    assert_trees_equal(jstate, engine.state_to_numpy(db.estate), FLOAT_TOL)
-    assert db.counters == jdb.counters
+    _assert_steps_equal(jst, st)
+    _assert_final_equal(jdb, db, jstate, 16)
     _check_conservation(db, kw)
 
 

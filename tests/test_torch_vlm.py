@@ -114,8 +114,8 @@ def _layer_inputs(v, pos):
 
 
 def test_vlm_init_params_shapes(vlm):
-    """The port's own init has the JAX tree's shapes per layer, the q/k/v
-    biases zero, and raises for ``banded_local`` only."""
+    """The port's own init has the JAX tree's shapes per layer and the
+    q/k/v biases zero."""
     p = model.init_params(vlm.cfg, torch.Generator().manual_seed(0),
                           device="cpu")
     assert p["embed"].shape == vlm.jp["embed"].shape
