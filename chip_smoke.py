@@ -12,7 +12,9 @@ Phases, each printed as one JSON line:
                  instance spilling
   2. kernels  -- each kernel against its plain PyTorch version on the card
                  at the main paths' shapes (clock_update and the three
-                 tier_compact movers bit-exact, clock_update's wrapper
+                 tier_compact movers bit-exact, clock_update also against
+                 the exact ordered access_seq on a batch without slot
+                 collisions, clock_update's wrapper
                  making no CUDA activity but its kernel's launches,
                  msc_score rtol 1e-5 with its own pick equal to the
                  plain argmax (and the first of equal maxima) and one
@@ -109,6 +111,27 @@ Phases, each printed as one JSON line:
                  argument bytes against the bytes held, a table laid out
                  by the spec's placements, op_cost's FLOPs beside
                  model_flops, mfu_f32
+  2n. pipeline -- stablelm-12b at full width (float32 weights from a
+                 seed) through distributed.pipeline.pipelined_forward on
+                 "cuda": 2 stages of 20 layers in turn on the card, 2
+                 microbatches, against one forward: B7 once per layer
+                 per microbatch, every stage boundary equal to the
+                 forward's residual for its rows (BLOCK_TOL a layer), the
+                 argmax gate; times, bubble share, peak memory
+  2o. moe_ep_local -- qwen3-moe-235b-a22b at full width, 4 of 94 layers:
+                 each MoE layer on the model's own activations through
+                 the global dispatch and ep_local on a one-rank NCCL
+                 mesh and on a stand-in of 4 model ranks: kept pairs
+                 equal, outputs within MOE_TOL, aux equal, ep_local's
+                 dropped 0 (F8) beside the global drops; the whole
+                 forward under both through the argmax gate
+  2p. starcoder2_prefill -- starcoder2-15b at full width (40 layers,
+                 63.8 GB): the gates of vlm_prefill on tokens
+  2q. examples -- examples/quickstart_torch.py, workloads_demo_torch.py
+                 and serve_tiered_torch.py in process on the card: the
+                 first two print what their CPU "reference" runs print,
+                 the third passes its asserts; B1 (and B3-B5 under
+                 serving) launch
   3. parity   -- the engine at paper_tier_config(scale=1) on one op
                  stream: backend "cuda" on the card vs "reference" on the
                  card and on the CPU; state, counters and per-op results
@@ -172,10 +195,9 @@ Phases, each printed as one JSON line:
                  differently on a near-tie
   6. dryrun   -- the port's dry run of every arch x applicable shape x
                  mesh, baseline and opt, on the meta device in two host
-                 processes started before the kernel checks: every
-                 baseline cell ok, the opt variant failing exactly the
-                 moe cells (ep_local is not ported); the banded_prefill
-                 cell's check
+                 processes started before the kernel checks: every cell
+                 of both variants ok (the opt moe cells on ep_local); the
+                 banded_prefill cell's check
 Then the kernels line, the nvidia-smi line, and the final ok line.  The
 sizes are the module constants below; PERF.md ("Scale used") says why.
 
@@ -360,6 +382,44 @@ TRAIN_GRAD_LAYERS, TRAIN_GRAD_TOL = 2, 1e-4
 # H100, near half the phase (PERF.md)
 TRAIN_CKPT_LAYERS = 6
 TRAIN_REDUCED = False              # True: the CPU rehearsal's reduced model
+# The last slice's phases.  pipeline: stablelm-12b at its published
+# width (src/repro/configs/stablelm_12b.py, hf:stabilityai/stablelm-2-12b:
+# 40 layers, d 5,120, 32 heads / 8 KV of 160, d_ff 13,824, vocab 100,352
+# untied), float32 weights from PIPE_SEED (12.1 B parameters, 48.6 GB),
+# PREFILL_BATCH x PREFILL_SEQ tokens from PIPE_TOKENS_SEED through a
+# PIPE_STAGES-stage GPipe of PIPE_MICRO microbatches on a stand-in mesh
+# (the stages in turn on the card), against one forward.
+PIPE_MODEL, PIPE_SEED, PIPE_TOKENS_SEED = "stablelm-12b", 28, 29
+PIPE_STAGES, PIPE_MICRO = 2, 2
+# A stage boundary is 20 blocks from the embeddings, each of whose GEMMs
+# sums in another order than the forward's (a microbatch's 2,048 rows
+# against the batch's 4,096): the relative error may grow by one block's
+# BLOCK_TOL a block, so the gate is BLOCK_TOL times the stage's layers.
+# moe_ep_local: qwen3-moe-235b-a22b at its published width (src/repro/
+# configs/qwen3_moe_235b_a22b.py, hf:Qwen/Qwen3-235B-A22B: d 4,096, 64
+# heads / 4 KV of 128, 128 experts top-8 of d_ff 1,536, vocab 151,936
+# untied), depth cut 94 -> MOE_LAYERS (9.7 GB of experts a layer; 4
+# layers are 44.8 GB in float32), float32 weights from MOE_SEED, tokens
+# from MOE_TOKENS_SEED; ep_local on a one-rank NCCL mesh and on a
+# stand-in of MOE_RANKS model ranks of 32 experts, against the global
+# dispatch.  Their outputs differ only in float32 summation order (the
+# experts' matmul shapes, a token's 8 outputs added in expert order):
+# within MOE_TOL (relative, Frobenius norm); aux within MOE_AUX_TOL
+# (relative: the mean over 4 equal ranks' values may round).
+MOE_MODEL, MOE_LAYERS, MOE_SEED, MOE_TOKENS_SEED = \
+    "qwen3-moe-235b-a22b", 4, 30, 31
+MOE_RANKS, MOE_TOL, MOE_AUX_TOL = 4, 1e-5, 1e-6
+# starcoder2_prefill: starcoder2-15b at its published width (src/repro/
+# configs/starcoder2_15b.py, arXiv:2402.19173: 40 layers, d 6,144, 48
+# heads / 4 KV of 128, GELU MLP of 24,576, biases on q/k/v, vocab 49,152
+# untied), float32 weights from STARCODER_SEED (15.96 B parameters, 63.8
+# GB: both legs fit, no depth cut), tokens from STARCODER_TOKENS_SEED.
+STARCODER_MODEL, STARCODER_SEED, STARCODER_TOKENS_SEED = \
+    "starcoder2-15b", 32, 33
+# examples: the three examples/*_torch.py run in this process, each
+# example's output on the card held to its CPU "reference" run's
+EXAMPLES = ("quickstart_torch", "workloads_demo_torch",
+            "serve_tiered_torch")
 
 
 _T_START: list = []             # main's start time, once it has one
@@ -450,7 +510,9 @@ def _kernel_ms(fn, calls: int, name: str) -> float:
 def check_clock_update(cfg, batch: int, rng) -> dict:
     """B1 against ``tracker.access_batched`` (and the kernel's passes in
     plain PyTorch, ``clock_update_passes``) on 8 batches of hot,
-    colliding and random keys, bit-exact; the wrapper's time, the
+    colliding and random keys, and against the exact ordered
+    ``tracker.access_seq`` on a batch whose keys share no slot, all
+    bit-exact; the wrapper's time, the
     launches' alone and the CUDA activities a wrapper call makes (the
     kernel's own three launches, nothing else)."""
     import numpy as np
@@ -497,9 +559,27 @@ def check_clock_update(cfg, batch: int, rng) -> dict:
                         int((a.to(torch.int64) - c.to(torch.int64))
                             .abs().max()))
         state = want
+    # the exact ordered reference, on a batch whose keys share no slot
+    # (one key a slot, the first drawn), from the tables the batches left
+    rnd = torch.from_numpy(rng.integers(0, cfg.key_space, batch)
+                           .astype(np.int32)).to(dev)
+    _, first = np.unique(tracker.slot_of(t, rnd).cpu().numpy(),
+                         return_index=True)
+    free = rnd[torch.from_numpy(np.sort(first)).to(dev)]
+    free_locs = torch.from_numpy(rng.integers(0, 2, free.numel())
+                                 .astype(np.int8)).to(dev)
+    ones = torch.ones(free.numel(), dtype=torch.bool, device=dev)
+    seq = tracker.access_seq(state, free, free_locs, ones)
+    got = ops.clock_update(tracker.TrackerState(*[x.clone() for x in state]),
+                           free, free_locs, ones)
+    torch.cuda.synchronize()
+    seq_err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(seq, got))
+    worst = max(worst, seq_err)
     if worst != 0:
         raise AssertionError(f"clock_update differs from access_batched "
-                             f"(max abs err {worst})")
+                             f"or, on a collision-free batch, from "
+                             f"access_seq (max abs err {worst})")
     touched = int(torch.unique(tracker.slot_of(t, keys[valid])).numel())
     scratch = tracker.TrackerState(*[x.clone() for x in state])
     call = lambda: ops.clock_update(scratch, keys, locs, valid)
@@ -528,6 +608,8 @@ def check_clock_update(cfg, batch: int, rng) -> dict:
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
             "library_ms": None, "shape": {"T": t, "B": batch},
             "touched_slots": touched, "launch_only_ms": launch_ms,
+            "access_seq_batch": int(free.numel()),
+            "access_seq_max_abs_err": float(seq_err),
             "cuda_kernels_per_call": per_call,
             "kernel_launches": CLOCK_LAUNCHES, "cuda_kernel_names": names}
 
@@ -4339,9 +4421,9 @@ def dryrun_cell_check(cfg, params, batch, forward_s: float) -> dict:
 def dryrun_phase(procs: list, cell: dict) -> dict:
     """Collect the dry-run processes (each within DRYRUN_WAIT_S of now):
     the cells that are ok and the failed ones by name, per variant, and
-    each process's seconds.  Gates: every process exits, every baseline
-    cell is ok, and the opt variant fails exactly the cells of the moe
-    archs (the expert-parallel dispatch is not ported)."""
+    each process's seconds.  Gates: every process exits, and every cell
+    of both variants is ok (the opt variant's moe cells on the
+    expert-parallel dispatch)."""
     from repro_torch.configs.base import (all_archs, applicable_shapes,
                                           get_arch)
     recs = {v: [] for v in DRYRUN_VARIANTS}
@@ -4361,7 +4443,6 @@ def dryrun_phase(procs: list, cell: dict) -> dict:
     cells = {(a, s.name, m) for a in all_archs()
              for s in applicable_shapes(get_arch(a))
              for m in ("16x16", "2x16x16")}
-    moe = {c for c in cells if get_arch(c[0]).moe}
     for variant in DRYRUN_VARIANTS:
         got = {(r["arch"], r["shape"], r["mesh"]) for r in recs[variant]}
         bad = {(r["arch"], r["shape"], r["mesh"]) for r in recs[variant]
@@ -4373,17 +4454,373 @@ def dryrun_phase(procs: list, cell: dict) -> dict:
                                      for r in recs[variant])}
         if got != cells:
             fails.append(f"{variant}: {len(cells - got)} cells missing")
-        want_bad = moe if variant == "opt" else set()
-        if bad != want_bad:
-            fails.append(f"{variant}: failed {sorted(bad ^ want_bad)} "
-                         "against expectation")
-    if any("ep_local" not in r["error"] for r in recs["opt"]
-           if not r["ok"]):
-        fails.append("an opt cell failed for another reason than ep_local")
+        if bad:
+            fails.append(f"{variant}: failed {sorted(bad)}")
     out["ok"] = not fails
     if fails:
         emit(out)
         raise AssertionError("dryrun: " + "; ".join(fails))
+    return out
+
+
+# ---------------------------------------------------------- the last slice
+
+@contextlib.contextmanager
+def _recording(module, name: str, keep):
+    """While open, ``module.name`` is wrapped: ``keep(n, out)`` sees the
+    output of its n-th call (from 1)."""
+    orig = getattr(module, name)
+    n = [0]
+
+    def run(*a, **kw):
+        out = orig(*a, **kw)
+        n[0] += 1
+        keep(n[0], out)
+        return out
+
+    setattr(module, name, run)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def _timed(fn):
+    """(fn(), its seconds, the peak memory it reached in GiB, B7's
+    launches), the launch counts set to 0 just before it."""
+    import torch
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.time() - t0,
+            torch.cuda.max_memory_allocated() / 2**30,
+            kernels.LAUNCHES["flash_attention"])
+
+
+def pipeline_phase(device=None) -> dict:
+    """stablelm-12b at its published width through
+    ``distributed.pipeline.pipelined_forward`` on backend "cuda": a
+    PIPE_STAGES-stage GPipe of PIPE_MICRO microbatches on a stand-in
+    ``MeshShape`` (the stages in turn on the card), against one
+    ``forward`` on "cuda" of the same tokens.  Gates: B7 launches once
+    per layer per microbatch in the pipeline, once per layer in the
+    forward; every stage boundary (a stage's output for a microbatch)
+    equals the forward's residual after that stage's last layer for the
+    same rows within BLOCK_TOL per layer of the stage (relative); the
+    logits pass the argmax gate of prefill (``_gate_ok``) against the
+    forward's.  Reports both times, the bubble share (S - 1) / (M + S -
+    1) and the peak memory."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed import pipeline
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import model
+    dev = torch.device(device or "cuda")
+    cfg = get_arch(PIPE_MODEL)
+    t0 = time.time()
+    params = model.init_params(cfg, torch.Generator(dev).manual_seed(
+        PIPE_SEED), device=dev)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
+                           generator=torch.Generator(dev).manual_seed(
+                               PIPE_TOKENS_SEED), device=dev)
+    batch = {"tokens": tokens}
+    per = cfg.n_layers // PIPE_STAGES
+    bm = PREFILL_BATCH // PIPE_MICRO
+    resid, bounds = {}, {}
+    keep_fwd = lambda n, out: resid.__setitem__(n, out[0]) \
+        if n % per == 0 and n < cfg.n_layers else None
+    mesh = MeshShape(("pod",), (PIPE_STAGES,))
+    with torch.no_grad():
+        model.forward(cfg, params, batch, backend="cuda")     # warm-up
+        with _recording(model, "_block_apply", keep_fwd):
+            fwd, fwd_s, fwd_gib, fwd_b7 = _timed(lambda: model.forward(
+                cfg, params, batch, backend="cuda")[0])
+        keep_pp = lambda n, out: bounds.__setitem__(n, out)
+        with _recording(pipeline, "run_stage", keep_pp):
+            pp, pp_s, pp_gib, pp_b7 = _timed(
+                lambda: pipeline.pipelined_forward(
+                    cfg, mesh, params, batch, n_micro=PIPE_MICRO,
+                    backend="cuda"))
+    # the in-turn schedule's stage calls, in order: at tick t, stages
+    # st = 0.. with microbatch t - st in range
+    calls = [(st, t - st) for t in range(PIPE_MICRO + PIPE_STAGES - 1)
+             for st in range(PIPE_STAGES) if 0 <= t - st < PIPE_MICRO]
+    errs = []
+    for n, (st, m) in enumerate(calls, 1):
+        if st < PIPE_STAGES - 1:
+            want = resid[(st + 1) * per][m * bm:(m + 1) * bm]
+            errs.append({"stage": st, "microbatch": m,
+                         "rel_err": _rel(bounds[n], want)})
+    gate = _argmax_gate(pp, fwd)
+    out = {"phase": "pipeline", "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "tokens": list(tokens.shape),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in _param_leaves(params)) / 1e9,
+           "init_params_s": t_init, "stages": PIPE_STAGES,
+           "microbatches": PIPE_MICRO, "mesh": "stand-in pod=2, in turn",
+           "forward_s": fwd_s, "pipelined_s": pp_s,
+           "forward_tokens_per_s": tokens.numel() / fwd_s,
+           "pipelined_tokens_per_s": tokens.numel() / pp_s,
+           "bubble_share": (PIPE_STAGES - 1) / (PIPE_MICRO + PIPE_STAGES - 1),
+           "forward_peak_gib": fwd_gib, "pipelined_peak_gib": pp_gib,
+           "flash_attention_launches_forward": fwd_b7,
+           "flash_attention_launches_pipelined": pp_b7,
+           "stage_boundaries": errs, "boundary_tol": BLOCK_TOL * per,
+           **gate}
+    del params, fwd, pp, resid, bounds
+    torch.cuda.empty_cache()
+    bad = [e for e in errs if not e["rel_err"] <= BLOCK_TOL * per]
+    if (fwd_b7 != cfg.n_layers or pp_b7 != cfg.n_layers * PIPE_MICRO
+            or len(errs) != PIPE_MICRO * (PIPE_STAGES - 1) or bad
+            or not _gate_ok(gate)):
+        emit(out)
+        raise AssertionError("pipeline: B7's launches, a stage boundary or "
+                             "the logits' argmax gate failed")
+    return out
+
+
+def moe_ep_local_phase(device=None) -> dict:
+    """qwen3-moe-235b-a22b at its published width, MOE_LAYERS layers:
+    every MoE layer, on the model's own activations (the "cuda" forward's
+    hidden state, B7 in its attention), through the global dispatch and
+    through ``moe_ffn_ep_local`` on a one-rank ("data", "model")
+    ``DeviceMesh`` over an NCCL group (the collective path) and on a
+    stand-in of MOE_RANKS model ranks (each rank's experts in turn).
+    Gates: the kept (token, expert) pairs equal the global dispatch's;
+    outputs within MOE_TOL (relative); aux within MOE_AUX_TOL; ep_local's
+    ``dropped`` is 0 whatever the global dispatch drops (F8, logged).
+    Then the whole forward under both dispatches (ep_local on the NCCL
+    mesh) through the argmax gate of prefill, each timed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import attention, model, moe
+    from repro_torch.models.common import norm
+    dev = torch.device(device or "cuda")
+    cfg = get_arch(MOE_MODEL).replace(n_layers=MOE_LAYERS)
+    t0 = time.time()
+    params = model.init_params(cfg, torch.Generator(dev).manual_seed(
+        MOE_SEED), device=dev)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
+                           generator=torch.Generator(dev).manual_seed(
+                               MOE_TOKENS_SEED), device=dev)
+    batch = {"tokens": tokens}
+    out = {"phase": "moe_ep_local", "model": cfg.name,
+           "layers": cfg.n_layers, "published_layers":
+               get_arch(MOE_MODEL).n_layers, "reduced": "depth 94 -> 4",
+           "d_model": cfg.d_model, "experts": cfg.n_experts,
+           "top_k": cfg.top_k, "expert_d_ff": cfg.d_ff,
+           "capacity_factor": cfg.capacity_factor,
+           "tokens": list(tokens.shape),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in _param_leaves(params)) / 1e9,
+           "init_params_s": t_init, "layer_check": []}
+    # NCCL on the card; gloo in a CPU rehearsal
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    local = mesh_mod.make_local_mesh(1, 1)
+    stand_in = mesh_mod.MeshShape(("data", "model"), (1, MOE_RANKS))
+    fails = []
+    try:
+        with torch.no_grad():
+            x = params["embed"][tokens]
+            pos = torch.arange(PREFILL_SEQ, device=dev)[None].expand(
+                PREFILL_BATCH, PREFILL_SEQ)
+            for l, blk in enumerate(params["blocks"]):
+                h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+                x = x + attention.attention(blk["mixer"], cfg, h, pos, -1,
+                                            backend="cuda")
+                h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
+                t0 = time.time()
+                want, wx = moe.moe_ffn_global(blk["ffn"], cfg, h)
+                torch.cuda.synchronize()
+                row = {"layer": l, "global_s": time.time() - t0,
+                       "global_dropped": float(wx["dropped"]),
+                       "global_aux": float(wx["aux_loss"]),
+                       "kept_pairs": int(wx["kept"].sum())}
+                for name, m in (("nccl_one_rank", local),
+                                (f"stand_in_{MOE_RANKS}_ranks", stand_in)):
+                    t0 = time.time()
+                    with sharding.use_mesh(m):
+                        got, gx = moe.moe_ffn_ep_local(blk["ffn"], cfg, h)
+                    torch.cuda.synchronize()
+                    r = {"s": time.time() - t0, "rel_err": _rel(got, want),
+                         "max_abs_err": float((got - want).abs().max()),
+                         "kept_equal": bool(torch.equal(gx["kept"],
+                                                        wx["kept"])),
+                         "experts_equal": bool(torch.equal(
+                             gx["experts"], wx["experts"])),
+                         "aux": float(gx["aux_loss"]),
+                         "dropped": float(gx["dropped"])}
+                    r["aux_rel_err"] = abs(r["aux"] - row["global_aux"]) \
+                        / abs(row["global_aux"])
+                    row[name] = r
+                    if not (r["kept_equal"] and r["experts_equal"]
+                            and r["rel_err"] <= MOE_TOL
+                            and r["aux_rel_err"] <= MOE_AUX_TOL
+                            and r["dropped"] == 0.0):
+                        fails.append((l, name))
+                out["layer_check"].append(row)
+                x = x + want
+            del x, h, want, got
+            lg, out["forward_global_s"], out["forward_global_peak_gib"], \
+                out["flash_attention_launches_global"] = _timed(
+                    lambda: model.forward(cfg, params, batch,
+                                          backend="cuda")[0])
+            ecfg = cfg.replace(moe_dispatch="ep_local")
+            with sharding.use_mesh(local):
+                elg, out["forward_ep_local_s"], \
+                    out["forward_ep_local_peak_gib"], \
+                    out["flash_attention_launches_ep_local"] = _timed(
+                        lambda: model.forward(ecfg, params, batch,
+                                              backend="cuda")[0])
+    finally:
+        dist.destroy_process_group()
+    out["end_to_end"] = _argmax_gate(elg, lg)
+    del params, lg, elg
+    torch.cuda.empty_cache()
+    b7 = (out["flash_attention_launches_global"],
+          out["flash_attention_launches_ep_local"])
+    if fails or not _gate_ok(out["end_to_end"]) or b7 != (cfg.n_layers,) * 2:
+        emit(out)
+        raise AssertionError(f"moe_ep_local: layer checks failed at "
+                             f"{fails}, or the end-to-end argmax gate or "
+                             "B7's launches")
+    return out
+
+
+def starcoder2_prefill_phase(device=None) -> dict:
+    """starcoder2-15b's prefill forward at full width (40 layers, float32
+    weights from STARCODER_SEED): ``loss_fn`` and ``forward`` on backend
+    "cuda" (B7 in every layer: q [2, 48, 2048, 128], kv [2, 4, 2048,
+    128], causal; profiled) and "reference" (the masked softmax).  Gates:
+    B7 launches once per layer on "cuda" and never on "reference"; the
+    argmax gate of prefill (``_gate_ok``); every layer's B7 core and
+    block (``_attn_layer_check``, ``_layer_gate``)."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model
+    dev = torch.device(device or "cuda")
+    cfg = get_arch(STARCODER_MODEL)
+    t0 = time.time()
+    params = model.init_params(cfg, torch.Generator(dev).manual_seed(
+        STARCODER_SEED), device=dev)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
+                           generator=torch.Generator(dev).manual_seed(
+                               STARCODER_TOKENS_SEED), device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    out = {"phase": "starcoder2_prefill", "model": cfg.name,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "tokens": list(tokens.shape), "init_params_s": t_init,
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in _param_leaves(params)) / 1e9}
+    legs, logits = _forward_legs(cfg, params, batch,
+                                 {"flash_attention": cfg.n_layers},
+                                 "starcoder2_prefill")
+    _prefill_shares(legs)
+    out.update(legs)
+    gate = _argmax_gate(logits["cuda"], logits["reference"])
+    out.update(gate)
+    out["loss_abs_diff"] = abs(legs["cuda"]["loss"]
+                               - legs["reference"]["loss"])
+    del logits
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    pos = torch.arange(PREFILL_SEQ, device=dev)[None].expand(
+        PREFILL_BATCH, PREFILL_SEQ)
+    check, _ = _attn_layer_check(
+        cfg, params["blocks"], params["embed"][tokens], pos, True,
+        lambda blk, x, bk: model._block_apply(cfg, blk, x, pos, -1, "attn",
+                                              False, bk)[0])
+    check["seconds"] = time.time() - t0
+    out["layer_check"] = check
+    del params
+    torch.cuda.empty_cache()
+    _layer_gate("starcoder2_prefill", out, {"decoder": check})
+    if not _gate_ok(gate):
+        emit(out)
+        raise AssertionError("starcoder2_prefill: the backends' argmax "
+                             "differ beyond near-ties")
+    return out
+
+
+def _run_example(name: str, argv: list):
+    """``examples/<name>.py``'s ``main(argv)`` in this process: (its
+    standard output, its return value, the kernels' launches, seconds),
+    the launch counts set to 0 just before it."""
+    import importlib.util
+    import io
+    import torch
+    from repro_torch import kernels
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        ret = mod.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return buf.getvalue(), ret, dict(kernels.LAUNCHES), time.time() - t0
+
+
+def examples_phase(device=None) -> dict:
+    """The three examples' ``main`` in this process, on the card (backend
+    "cuda": B1-B5 under them) and again on the CPU on backend
+    "reference".  Gates: quickstart_torch and workloads_demo_torch print
+    the same text on both (every integer the JAX examples print; the
+    tests hold those); serve_tiered_torch passes its own asserts on the
+    card; every example launches B1 on the card, serve_tiered_torch the
+    paged-KV movers B3-B5 too."""
+    out = {"phase": "examples"}
+    fails = []
+    for name in EXAMPLES:
+        argv = ["--device", device] if device else []
+        text, ret, launches, secs = _run_example(name, argv)
+        row = {"s": secs, "launches": {k: v for k, v in launches.items()
+                                       if v},
+               "last_lines": text.strip().splitlines()[-3:]}
+        if name != "serve_tiered_torch":
+            ref, _, _, ref_s = _run_example(
+                name, ["--device", "cpu", "--backend", "reference"])
+            row["cpu_reference_s"] = ref_s
+            row["equal_to_cpu_reference"] = text == ref
+            if text != ref:
+                row["output"], row["cpu_reference_output"] = text, ref
+                fails.append(name)
+        else:
+            row["retired"] = ret.stats["retired"]
+            row["compactions"] = ret.stats["compactions"]
+            row["demoted"] = ret.counters["demoted"]
+        need = ("clock_update",) + (("select_gather_rows", "scatter_rows",
+                                     "gather_rows")
+                                    if name == "serve_tiered_torch" else ())
+        if device is None and not all(launches.get(k) for k in need):
+            fails.append(f"{name}: launches {row['launches']}")
+        out[name] = row
+    if fails:
+        emit(out)
+        raise AssertionError(f"examples: {fails}")
     return out
 
 
@@ -4544,6 +4981,15 @@ def main() -> int:
         # gemma3-1b's training at full width through the launcher, on the
         # plain paths (no kernel has a backward), and its gates
         emit(train_phase())
+        torch.cuda.empty_cache()
+
+        # the last slice: stablelm-12b through the GPipe pipeline,
+        # qwen3-moe's expert-parallel dispatch, starcoder2-15b's prefill
+        # (B7 in every attention layer of each), and the three examples
+        emit(pipeline_phase())
+        emit(moe_ep_local_phase())
+        emit(starcoder2_prefill_phase())
+        emit(examples_phase())
         torch.cuda.empty_cache()
         line, base = engine_parity(BATCH)
         emit(line)

@@ -4,7 +4,9 @@ A direct-mapped hash table with clock-protected overwrite, as in the JAX
 package: a hit sets clock 3, an empty or clock-0 slot takes the new key,
 an occupied slot with clock > 0 decays by one.  ``access_batched`` is the
 canonical batched semantics and the plain version of the
-``clock_update`` kernel (``repro_torch.kernels.clock_update``).
+``clock_update`` kernel (``repro_torch.kernels.clock_update``);
+``access_seq`` is the exact ordered reference, one access at a time,
+which ``access_batched`` equals on batches whose keys share no slot.
 """
 from __future__ import annotations
 
@@ -49,6 +51,40 @@ def _segment(vals: torch.Tensor, gid: torch.Tensor, n: int, reduce: str,
     out = torch.full((n,), init, dtype=vals.dtype, device=vals.device)
     return out.scatter_reduce_(0, gid, vals, reduce=reduce,
                                include_self=True)
+
+
+def access_seq(state: TrackerState, keys: torch.Tensor, locs: torch.Tensor,
+               valid: torch.Tensor) -> TrackerState:
+    """Exact ordered semantics (JAX ``tracker.access_seq``): the valid
+    accesses applied one after another in batch order.  A resident key
+    takes clock 3 and the access's loc; an empty slot, or an occupied one
+    at clock 0, takes the key at clock 0 with the access's loc; an
+    occupied slot at clock > 0 decays by one (the clock and loc int8, as
+    in JAX).  A Python loop on the host over the batch's slots, for
+    host-sized batches: a reference path, which nothing on the main path
+    calls.  Returns new tables; the input tables are left untouched."""
+    slots, inv = torch.unique(slot_of(state.capacity, keys),
+                              return_inverse=True)
+    tk = state.keys[slots].tolist()
+    tc = state.clock[slots].tolist()
+    tl = state.loc[slots].tolist()
+    for j, k, loc, v in zip(inv.tolist(), keys.tolist(),
+                            locs.to(torch.int8).tolist(), valid.tolist()):
+        if not v:
+            continue
+        if tk[j] == k:                                   # resident
+            tc[j], tl[j] = CLOCK_MAX, loc
+        elif tk[j] >= 0 and tc[j] > 0:                   # protected
+            tc[j] -= 1
+        else:                                            # empty or clock 0
+            tk[j], tc[j], tl[j] = k, 0, loc
+    out = []
+    for table, vals in zip(state, (tk, tc, tl)):
+        table = table.clone()
+        table[slots] = torch.tensor(vals, dtype=table.dtype,
+                                    device=table.device)
+        out.append(table)
+    return TrackerState(*out)
 
 
 def access_batched(state: TrackerState, keys: torch.Tensor,

@@ -1,4 +1,5 @@
 """Multi-process planes of the port: the partition-routing key exchange
 of ``PartitionedDB`` over a ``torch.distributed`` process group and
-training's int8 error feedback (``collectives``), and the logical-axis
-sharding rules (``sharding``)."""
+training's int8 error feedback (``collectives``), the logical-axis
+sharding rules, the ambient mesh and ``constrain`` (``sharding``), and
+the GPipe pipeline over the "pod" mesh axis (``pipeline``)."""

@@ -15,19 +15,28 @@ a tuple of names, or None (replicated) -- what a
 stand-in for the 256- and 512-chip meshes), or a
 ``torch.distributed.device_mesh.DeviceMesh`` with named dimensions.
 ``placements`` turns a spec into the DTensor placements of a
-``DeviceMesh``, the port's counterpart of ``NamedSharding``.
+``DeviceMesh``, the port's counterpart of ``NamedSharding``
+(``named_sharding_tree`` for a tree, ``leading_axis_sharding`` for a
+stacked per-partition state).
 
-``constrain`` (the activations' sharding constraint) and
-``leading_axis_sharding`` are not ported: the port runs no model or
-partition stack over a mesh yet (ROADMAP Queue 1, G).
+The model code imports this module for ``constrain``, so
+``torch.distributed.tensor`` is imported only where a DTensor is made
+or read.
+
+``use_mesh`` makes a mesh ambient in this thread while a block runs, as
+``jax.set_mesh`` does; ``current_mesh`` reads it, as
+``jax.sharding.get_abstract_mesh`` does.  ``constrain`` is the
+activations' sharding constraint under it: a DTensor on the ambient
+``DeviceMesh`` is redistributed to its logical spec, and anything else
+(no ambient mesh, a stand-in mesh, a plain tensor) passes unchanged, as
+JAX's constraint does without a mesh.  The expert-parallel MoE dispatch
+(``models/moe.moe_ffn_ep_local``) and the dry run read the ambient mesh.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import threading
-
-from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.core.tree import is_spec, map_tree
 
@@ -78,6 +87,24 @@ def axis_rules(rules: dict):
         _state.rules = prev
 
 
+def current_mesh():
+    """The ambient mesh of this thread (``use_mesh``), or None."""
+    return getattr(_state, "mesh", None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` (a named ``DeviceMesh``, or a stand-in with
+    ``axis_names`` and ``axis_sizes`` such as ``launch/mesh.MeshShape``)
+    the ambient mesh in this thread while the block runs."""
+    prev = current_mesh()
+    _state.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _state.mesh = prev
+
+
 def mesh_axes(mesh) -> dict:
     """{axis name: size} of ``mesh``, in the mesh's axis order."""
     if hasattr(mesh, "axis_sizes"):
@@ -124,6 +151,25 @@ def logical_to_spec(logical, mesh, shape=None, allowed=None) -> tuple:
     return tuple(out)
 
 
+def constrain(x, logical):
+    """The sharding constraint of an activation: ``x`` unchanged when no
+    mesh is ambient, when the ambient mesh is a stand-in, or when ``x``
+    is a plain tensor; a DTensor on the ambient ``DeviceMesh``
+    redistributed to the placements of ``logical``'s spec for its
+    shape."""
+    mesh = current_mesh()
+    if mesh is None or hasattr(mesh, "axis_sizes"):
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    if x.device_mesh != mesh:
+        raise ValueError("constrain: the DTensor lies on another mesh than "
+                         "the ambient one")
+    spec = logical_to_spec(logical, mesh, shape=x.shape)
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
 def spec_tree(specs, shapes, mesh):
     """specs: a tree of logical tuples; shapes: the matching tree of
     tensors (meta tensors will do) -> the tree of mesh specs."""
@@ -146,6 +192,7 @@ def placements(spec, mesh) -> list:
     dimension d names, ``Replicate()`` on the others.  A dimension split
     over several mesh axes must name them in the mesh's order, which is
     the order DTensor splits in."""
+    from torch.distributed.tensor import Replicate, Shard
     order = list(mesh_axes(mesh))
     out = [Replicate()] * len(order)
     for d, e in enumerate(spec):
@@ -157,3 +204,23 @@ def placements(spec, mesh) -> list:
         for i in idx:
             out[i] = Shard(d)
     return out
+
+
+def named_sharding_tree(specs, shapes, mesh):
+    """specs: a tree of logical tuples; shapes: the matching tree of
+    tensors -> the tree of DTensor placements on ``mesh`` (JAX's tree of
+    ``NamedSharding``)."""
+    return map_tree(lambda s, v: placements(
+        logical_to_spec(s, mesh, shape=v.shape), mesh), specs, shapes,
+        is_leaf=is_spec)
+
+
+def leading_axis_sharding(tree, mesh, logical: str = "part"):
+    """The placements that shard every leaf's leading axis by ``logical``
+    and replicate the rest: the layout of a stacked per-partition
+    ``EngineState`` over the partition mesh.  Size-aware as every spec
+    is: a leaf whose leading dimension the mesh axis does not divide
+    stays replicated rather than padded."""
+    return map_tree(lambda x: placements(logical_to_spec(
+        (logical,) + (None,) * (x.dim() - 1), mesh, shape=x.shape), mesh),
+        tree)

@@ -31,11 +31,13 @@ come from a compiled SPMD program, which the port does not build.
 
 The plain RWKV-6 and Mamba scans loop over the sequence; they are counted
 from runs of 2, 3 and 4 steps (``op_cost.StepCounted``), which the record
-says under ``counted_apart``.  ``--variant opt`` applies JAX's opt
-changes: banded attention for mixed-window archs, the decode rules
-(batch over data x model, cache head dim replicated), and the
-expert-parallel MoE dispatch, which the port does not have yet: those
-cells record ``ok: false`` with the port's error.
+says under ``counted_apart``.  Each cell runs under its mesh
+(``sharding.use_mesh``) and rules, as JAX lowers it under its mesh.
+``--variant opt`` applies JAX's opt changes: banded attention for
+mixed-window archs, the decode rules (batch over data x model, cache
+head dim replicated), and the expert-parallel MoE dispatch
+(``moe.moe_ffn_ep_local``), which on the meta device runs one rank's
+part of each MoE layer and counts it once per (data shard, model rank).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
@@ -58,7 +60,7 @@ from repro_torch.configs.base import (SHAPES, all_archs, applicable_shapes,
 from repro_torch.core.tree import is_spec, leaves, map_tree
 from repro_torch.distributed.sharding import (DEFAULT_RULES, axis_rules,
                                               logical_to_spec,
-                                              shard_count)
+                                              shard_count, use_mesh)
 from repro_torch.kernels.mamba_scan import ops as mamba_ops
 from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
 from repro_torch.launch.mesh import make_production_mesh
@@ -171,10 +173,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: str,
                           variant)
         mesh = cell["mesh"]
         n_dev = mesh.size
-        with axis_rules(cell["rules"]):
+        with axis_rules(cell["rules"]), use_mesh(mesh):
             arg_bytes = per_device_bytes(cell["specs"], cell["args"], mesh)
-        with _scans_by_trip_count(), OpCost() as mode:
-            cell["fn"](*cell["args"])
+            with _scans_by_trip_count(), OpCost() as mode:
+                cell["fn"](*cell["args"])
         cost = mode.result()
         rec["memory_analysis"] = {
             "argument_size_in_bytes": arg_bytes,

@@ -2,8 +2,9 @@
 dense KV cache, and whisper's cross-attention (the port's copy of the
 JAX package's ``models/attention.py``).
 
-Sharding constraints (``constrain``) have no counterpart: the port runs
-on one device.  ``attention`` takes its window as a Python int, so
+The sharding constraints (``distributed/sharding.constrain``) sit where
+the JAX package puts them; they change nothing but a DTensor on the
+ambient mesh.  ``attention`` takes its window as a Python int, so
 backend "cuda" runs the flash_attention kernel (B7) in every layer,
 windowed or global, causal or not.  Cross-attention is plain PyTorch, as
 the JAX package computes it outside any kernel, and so is
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.models.common import ParamInit, apply_m_rope, apply_rope
 
@@ -84,11 +86,14 @@ def attention(params, cfg: ModelConfig, x, positions, window: int, *,
     as in the JAX package, takes the rows as right-aligned contiguous
     positions.  The two agree while the positions are contiguous."""
     q, k, v = _qkv(params, cfg, x, positions)
+    q = constrain(q, ("batch", "heads", "seq", "head_dim"))
+    k = constrain(k, ("batch", "kv_heads", "seq", "head_dim"))
     if backend == "reference":
         pos1d = positions[..., 0] if positions.dim() == 3 else positions
         o = _masked_attention(q, k, v, pos1d, window, causal)
     else:
         o = mha(q, k, v, causal=causal, window=int(window), backend=backend)
+    o = constrain(o, ("batch", "heads", "seq", "head_dim"))
     return _out(o, params["wo"])
 
 
@@ -126,6 +131,7 @@ def banded_attention(params, cfg: ModelConfig, x, positions, window: int):
     sc = torch.where(mask, sc, -1e30)
     o = torch.softmax(sc, dim=-1) @ band(v)[:, :, None]
     o = o.reshape(b, hq, s + pad, hd)[:, :, :s].to(x.dtype)
+    o = constrain(o, ("batch", "heads", "seq", "head_dim"))
     return _out(o, params["wo"])
 
 

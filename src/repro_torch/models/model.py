@@ -37,6 +37,10 @@ positions; each global layer takes ``attention.attention`` on the
 backend (B7 on "cuda").  The hybrid family ignores ``banded_local``, as
 in JAX.
 
+The sharding constraints (``distributed/sharding.constrain``) sit where
+the JAX package puts them, on the embeddings and the logits; they change
+nothing but a DTensor on the ambient mesh.
+
 ``param_specs`` and ``cache_specs`` give the logical-axis specs of the
 parameters and the decode cache without a tensor: the specs JAX's
 ``init_params`` and ``init_cache`` return beside their arrays, the
@@ -51,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.tree import leaves
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -214,7 +219,7 @@ def _arange_positions(b: int, s: int, device) -> torch.Tensor:
 
 def _lm_logits(cfg: ModelConfig, params, x):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    return constrain(x @ head, ("batch", "seq", "vocab"))
 
 
 def _tracks_grad(*trees) -> bool:
@@ -254,6 +259,7 @@ def forward(cfg: ModelConfig, params, batch: dict, *,
         x = batch["embeds"].to(params["embed"].dtype)
     else:
         x = params["embed"][batch["tokens"].to(torch.int64)]
+    x = constrain(x, ("batch", "seq", "embed"))
     positions = batch.get("positions")
     if positions is None:
         positions = _arange_positions(*x.shape[:2], x.device)

@@ -22,10 +22,15 @@ a mesh, which the port does not have yet: it raises.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import ParamInit
 
 
@@ -46,52 +51,70 @@ def init_moe(pi: ParamInit, cfg: ModelConfig) -> dict:
 def moe_ffn(params, cfg: ModelConfig, x):
     if cfg.moe_dispatch == "rowwise":
         return moe_ffn_rowwise(params, cfg, x)
+    if cfg.moe_dispatch == "ep_local":
+        return moe_ffn_ep_local(params, cfg, x)
     if cfg.moe_dispatch != "global":
-        raise NotImplementedError(
-            f"moe_dispatch {cfg.moe_dispatch!r} is not ported (ROADMAP "
-            "Queue 1: the expert-parallel dispatch needs a mesh)")
+        raise ValueError(f"unknown moe_dispatch {cfg.moe_dispatch!r}")
     return moe_ffn_global(params, cfg, x)
 
 
 def moe_ffn_global(params, cfg: ModelConfig, x):
-    """x: [B, S, D] -> ([B, S, D], {"aux_loss", "dropped", "experts"}):
-    the JAX package's two extras and each token's top-k experts
-    [B, S, k].  One dispatch over all B * S tokens: the rowwise dispatch
-    of a single row of B * S tokens, whose capacity, sort, drops and
-    aux loss are the global ones."""
+    """x: [B, S, D] -> ([B, S, D], {"aux_loss", "dropped", "experts",
+    "kept"}): the JAX package's two extras, each token's top-k experts
+    [B, S, k] and whether each of those choices was kept [B, S, k] (not
+    dropped at capacity).  One dispatch over all B * S tokens: the
+    rowwise dispatch of a single row of B * S tokens, whose capacity,
+    sort, drops and aux loss are the global ones."""
     b, s, d = x.shape
-    out, extras = moe_ffn_rowwise(params, cfg, x.reshape(1, b * s, d))
+    out, extras = _dispatch_rows(params, cfg, x.reshape(1, b * s, d), None)
     return out.reshape(b, s, d), {
-        **extras, "experts": extras["experts"].reshape(b, s, -1)}
+        **extras, "experts": extras["experts"].reshape(b, s, -1),
+        "kept": extras["kept"].reshape(b, s, -1)}
 
 
 def moe_ffn_rowwise(params, cfg: ModelConfig, x):
     """Row-local dispatch: each batch row sorts its own S * k choices into
     its own [E, C_row, d] buffer (capacity and drops per row).  Returns
-    ([B, S, D], {"aux_loss", "dropped", "experts" [B, S, k]})."""
-    b, s, d = x.shape
+    ([B, S, D], {"aux_loss", "dropped", "experts" [B, S, k], "kept"
+    [B, S, k]})."""
+    return _dispatch_rows(params, cfg, x, "batch")
+
+
+def _route(params, cfg: ModelConfig, x):
+    """Router logits (padded experts masked), the softmax, each token's
+    top-k experts by a stable descending sort and their renormalised
+    weights, and the Switch-style load-balancing aux loss.  x: [..., D]
+    -> (top_p [..., k], top_e [..., k], aux)."""
     e = cfg.n_experts_padded or cfg.n_experts
     k = cfg.top_k
     dev = x.device
-
-    # ---- routing: padded experts masked, top-k by a stable sort
-    logits = (x @ params["router"]).to(torch.float32)          # [B, S, E]
+    logits = (x @ params["router"]).to(torch.float32)         # [..., E]
     if e != cfg.n_experts:
         pad = torch.arange(e, device=dev) >= cfg.n_experts
         logits = torch.where(pad, -1e30, logits)
     probs = torch.softmax(logits, dim=-1)
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = srt.values[..., :k], srt.indices[..., :k]  # [B, S, k]
+    top_p, top_e = srt.values[..., :k], srt.indices[..., :k]
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
-
-    # load-balancing aux loss (Switch-style)
     me = torch.mean(probs.reshape(-1, e), dim=0)
     # one-hot by comparison: F.one_hot reads the indices' range back to
     # the host on the CPU, and cannot on the meta device
     first = top_e[..., 0].reshape(-1, 1)
     ce = torch.mean((first == torch.arange(e, device=dev))
                     .to(torch.float32), dim=0)
-    aux = torch.sum(me * ce) * e
+    return top_p, top_e, torch.sum(me * ce) * e
+
+
+def _dispatch_rows(params, cfg: ModelConfig, x, row_axis):
+    """The rowwise dispatch; ``row_axis`` is the logical axis of the
+    buffers' row dimension in their sharding constraints ("batch"; None
+    for the global dispatch's single row, whose buffers JAX constrains
+    as [E, C, d])."""
+    b, s, d = x.shape
+    e = cfg.n_experts_padded or cfg.n_experts
+    k = cfg.top_k
+    dev = x.device
+    top_p, top_e, aux = _route(params, cfg, x)                # [B, S, k]
 
     # ---- sort-based dispatch
     c = int(cfg.capacity_factor * s * k / e) + 1
@@ -109,9 +132,12 @@ def moe_ffn_rowwise(params, cfg: ModelConfig, x):
     buf = torch.zeros((b, e * c + 1, d), dtype=x.dtype, device=dev)
     buf[rows, slot] = torch.gather(x, 1, st_[..., None].expand(b, s * k, d))
     buf = buf[:, :e * c].reshape(b, e, c, d)
+    axes = (row_axis, "expert", "capacity", "embed")
+    buf = constrain(buf, axes)
     h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"])) \
         * torch.einsum("becd,edf->becf", buf, params["w_up"])
-    out_flat = torch.einsum("becf,efd->becd", h, params["w_down"]) \
+    out_flat = constrain(torch.einsum("becf,efd->becd", h,
+                                      params["w_down"]), axes) \
         .reshape(b, e * c, d)
 
     # ---- combine, in (token, choice) order
@@ -126,4 +152,147 @@ def moe_ffn_rowwise(params, cfg: ModelConfig, x):
     out = g[:, :, 0]
     for j in range(1, k):
         out = out + g[:, :, j]
-    return out, {"aux_loss": aux, "dropped": dropped, "experts": top_e}
+    return out, {"aux_loss": aux, "dropped": dropped, "experts": top_e,
+                 "kept": keep_u.reshape(b, s, k)}
+
+
+def moe_ffn_ep_local(params, cfg: ModelConfig, x):
+    """Expert parallelism over the ambient mesh's "model" axis (the JAX
+    package's ``moe_ffn_ep_local``, its ``shard_map`` body ``local``).
+
+    Each "model" rank routes its batch shard over all E experts, runs
+    its own E / ep experts (rank r: experts [r E/ep, (r+1) E/ep)), each
+    over the first ``cap_l = min(max(int(cf bl s k / E) + 1, 1), bl s)``
+    tokens that picked it, in position order, and the partial outputs
+    are summed over the ranks; ``aux_loss`` is their mean.  ``dropped``
+    is 0, as the JAX package returns it whatever the capacity drops
+    (ROADMAP Queue 3, F8); ``kept`` [B, S, k] says which choices the
+    capacity kept, and ``experts`` [B, S, k] is each token's top-k.
+
+    The mesh decides where the parts run:
+
+    * none ambient, or one without a "model" axis: the rowwise dispatch,
+      as in the JAX package;
+    * a stand-in (``launch/mesh.MeshShape``): the batch cut into the
+      shards of its ("pod", "data") axes that each divide B, and every
+      (shard, rank) part run in turn in this process, the parts of a
+      shard added (what the psum gives); ``aux_loss`` is shard 0's, the
+      value JAX's unchecked replicated output holds (PERF.md);
+    * a named ``DeviceMesh``: ``x`` is this rank's batch shard (plain
+      tensors, every expert's weights), and the sums run over the
+      "model" group (``all_reduce``);
+    * meta tensors: one part, counted once per part
+      (``roofline/op_cost.counted_times``): every part has the same
+      shapes, so the count is exact.
+    """
+    mesh = sharding.current_mesh()
+    axes = sharding.mesh_axes(mesh) if mesh is not None else {}
+    if "model" not in axes:
+        return moe_ffn_rowwise(params, cfg, x)
+    e = cfg.n_experts_padded or cfg.n_experts
+    ep = axes["model"]
+    if e % ep:
+        raise ValueError(f"{e} experts over a model axis of {ep}")
+    e_loc = e // ep
+    b, s, d = x.shape
+    if not hasattr(mesh, "axis_sizes"):          # a DeviceMesh
+        return _ep_on_mesh(params, cfg, x, mesh, e_loc)
+    n_data = math.prod(axes[a] for a in ("pod", "data")
+                       if a in axes and b % axes[a] == 0)
+    if b % n_data:
+        raise ValueError(f"a batch of {b} over {n_data} data shards")
+    bl = b // n_data
+    if x.device.type == "meta":
+        from repro_torch.roofline.op_cost import counted_times
+        out, aux, kept, top_e = counted_times(
+            n_data * ep, functools.partial(_ep_experts, cfg, 0), x[:bl],
+            params["router"], *_expert_slice(params, 0, e_loc))
+        cat = lambda t: torch.cat([t] * n_data)
+        return cat(out), {"aux_loss": aux, "dropped": _no_drops(x),
+                          "experts": cat(top_e), "kept": cat(kept)}
+    outs, kepts, tops, auxs = [], [], [], []
+    for i in range(n_data):
+        xs = x[i * bl:(i + 1) * bl]
+        parts = [_ep_part(params, cfg, xs, r * e_loc, e_loc)
+                 for r in range(ep)]
+        out = parts[0][0]
+        for p in parts[1:]:
+            out = out + p[0]
+        outs.append(out)
+        auxs.append(sum(p[1] for p in parts) / ep)
+        kepts.append(torch.stack([p[2] for p in parts]).any(0))
+        tops.append(parts[0][3])
+    return torch.cat(outs), {"aux_loss": auxs[0], "dropped": _no_drops(x),
+                             "experts": torch.cat(tops),
+                             "kept": torch.cat(kepts)}
+
+
+def _no_drops(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ep_on_mesh(params, cfg: ModelConfig, x, mesh, e_loc: int):
+    """``moe_ffn_ep_local`` on a named ``DeviceMesh``: this rank's part
+    of its batch shard ``x``, summed over the "model" group."""
+    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_reduce
+    group = mesh.get_group("model")
+    ep = dist.get_world_size(group)
+    out, aux, kept, top_e = _ep_part(
+        params, cfg, x, mesh.get_local_rank("model") * e_loc, e_loc)
+    if ep > 1:
+        out = all_reduce(out, group=group)
+        aux = all_reduce(aux, group=group) / ep
+        kept = kept.to(torch.int32)
+        dist.all_reduce(kept, group=group)
+        kept = kept > 0
+    return out, {"aux_loss": aux, "dropped": _no_drops(x), "experts": top_e,
+                 "kept": kept}
+
+
+def _expert_slice(params, lo: int, e_loc: int) -> list:
+    return [params[n][lo:lo + e_loc] for n in ("w_gate", "w_up", "w_down")]
+
+
+def _ep_part(params, cfg: ModelConfig, xs, lo: int, e_loc: int):
+    """One rank's part: its batch shard ``xs`` [bl, S, D] routed over
+    all experts, experts [lo, lo + e_loc) run.  Returns (partial out
+    [bl, S, D], aux, kept [bl, S, k] for those experts' choices, top_e
+    [bl, S, k])."""
+    return _ep_experts(cfg, lo, xs, params["router"],
+                       *_expert_slice(params, lo, e_loc))
+
+
+def _ep_experts(cfg: ModelConfig, lo: int, xs, router, w_gate, w_up,
+                w_down):
+    """``_ep_part`` on the part's expert weights ([e_loc, ...]), whose
+    first expert is global expert ``lo``."""
+    bl, s, d = xs.shape
+    e = router.shape[-1]
+    k = cfg.top_k
+    t = bl * s
+    dev = xs.device
+    xt = xs.reshape(t, d)
+    top_p, top_e, aux = _route({"router": router}, cfg, xt)     # [T, k]
+    cap = min(max(int(cfg.capacity_factor * t * k / e) + 1, 1), t)
+    out = torch.zeros((t, d), dtype=xs.dtype, device=dev)
+    kept = torch.zeros((t, k), dtype=torch.bool, device=dev)
+    for j in range(w_gate.shape[0]):
+        hit = top_e == lo + j                                   # [T, k]
+        w_tok = torch.sum(torch.where(hit, top_p, 0.0), dim=-1)
+        sel = w_tok > 0
+        # the first cap selected tokens in position order, then the
+        # others in position order: JAX's lax.top_k of the scores
+        # -arange (selected) and -1e30 - arange, which float32 rounds to
+        # one value, its ties broken by the lower index
+        idx = torch.sort((~sel).to(torch.int8), stable=True).indices[:cap]
+        keep = sel[idx]
+        xe = torch.where(keep[:, None], xt[idx], 0)             # [C, D]
+        h = F.silu(xe @ w_gate[j]) * (xe @ w_up[j])
+        oe = (h @ w_down[j]) * w_tok[idx][:, None].to(xs.dtype)
+        out = out.index_add(0, idx, torch.where(keep[:, None], oe, 0))
+        mark = torch.zeros(t, dtype=torch.bool, device=dev)
+        mark[idx] = keep
+        kept = kept | (hit & mark[:, None])
+    return (out.reshape(bl, s, d), aux, kept.reshape(bl, s, k),
+            top_e.reshape(bl, s, k))

@@ -30,6 +30,10 @@ at most 2 in T (a loop's forward is affine in T; autograd's backward
 through per-step slices adds a full-size gradient a step, so it is
 quadratic).  Its output is an
 empty meta tensor of the full shape.
+
+``counted_times`` is the counterpart for work that a mesh does n times
+over parts of one shape (a rank's share of the expert-parallel MoE
+dispatch): run once, counted n times, forward and backward.
 """
 from __future__ import annotations
 
@@ -206,3 +210,56 @@ def op_cost(fn, *args, **kwargs) -> tuple:
     with OpCost() as mode:
         out = fn(*args, **kwargs)
     return out, mode.result()
+
+
+def counted_times(n: int, fn, *args):
+    """``fn(*args)``, run once and counted ``n`` times by the active
+    ``OpCost``, forward and (through autograd) backward: the work of n
+    parts of one shape, as the ranks of a mesh do it.  Without an active
+    ``OpCost``, ``fn(*args)``.  ``args`` are tensors; ``fn`` returns a
+    tuple of tensors."""
+    if _active_cost() is None:
+        return fn(*args)
+    return _CountedTimes.apply(fn, n, *args)
+
+
+@contextlib.contextmanager
+def _scaled(mode: OpCost, n: int):
+    prev, mode.scale = mode.scale, mode.scale * n
+    try:
+        yield
+    finally:
+        mode.scale = prev
+
+
+class _CountedTimes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fn, n, *args):
+        ctx.fn, ctx.n = fn, n
+        ctx.save_for_backward(*args)
+        with _scaled(_active_cost(), n):
+            outs = fn(*args)
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        args, mode = ctx.saved_tensors, _active_cost()
+        need = [i for i in range(len(args)) if ctx.needs_input_grad[i + 2]]
+        with mode.uncounted(), torch.enable_grad():
+            xs = [a.detach().requires_grad_(i in need)
+                  for i, a in enumerate(args)]
+            outs = ctx.fn(*xs)
+        pairs = [(o, g) for o, g in zip(outs, gouts)
+                 if o.requires_grad and g is not None]
+        grads = [None] * len(args)
+        if need and pairs:
+            with _scaled(mode, ctx.n):
+                got = torch.autograd.grad([o for o, _ in pairs],
+                                          [xs[i] for i in need],
+                                          [g for _, g in pairs],
+                                          allow_unused=True)
+            for i, g in zip(need, got):
+                grads[i] = g
+        return (None, None, *grads)

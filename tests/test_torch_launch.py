@@ -51,8 +51,8 @@ MESHES = {"16x16": (("data", "model"), (16, 16)),
 DECODE_OPT_RULES = {**jsharding.DEFAULT_RULES,
                     "batch": ("pod", "data", "model"),
                     "cache_head_dim": None}
-# the opt variant's cells that need the expert-parallel MoE dispatch
-# ("ep_local"), which the port does not have: every cell of the moe archs
+# the opt variant's cells that run the expert-parallel MoE dispatch
+# ("ep_local"): every cell of the moe archs
 EP_LOCAL_CELLS = [(a, s.name) for a in ("granite-moe-3b-a800m",
                                         "jamba-v0.1-52b",
                                         "qwen3-moe-235b-a22b")
@@ -443,28 +443,54 @@ def test_dryrun_argument_bytes_equal_dtensor_shards(arch, kind, multi):
 
 @pytest.mark.parametrize("arch,shape", EP_LOCAL_CELLS)
 def test_dryrun_opt_moe_cells_need_ep_local(arch, shape, tmp_path):
-    """The opt variant's moe cells fail with the port's own error for the
-    expert-parallel dispatch, and only they (``EP_LOCAL_CELLS``)."""
+    """The opt variant's moe cells run the expert-parallel dispatch under
+    the cell's mesh and are ok.  For qwen3-moe's prefill cell, op_cost's
+    FLOPs equal the baseline cell's with each layer's global dispatch
+    (the router over all tokens, E experts over capacity C) replaced by
+    the analytic ep_local work (the router once per (data shard, model
+    rank) part, and per data shard E experts over ``cap_l``), within
+    1%."""
     rec = dryrun.run_cell(arch, shape, False, str(tmp_path), variant="opt")
-    assert not rec["ok"]
-    assert rec["error"].startswith("NotImplementedError") and \
-        "ep_local" in rec["error"]
-    assert base.get_arch(arch).moe
+    assert rec["ok"], rec.get("error")
+    cfg = base.get_arch(arch)
+    assert cfg.moe
+    if (arch, shape) != ("qwen3-moe-235b-a22b", "prefill_32k"):
+        return
+    base_rec = dryrun.run_cell(arch, shape, False, str(tmp_path))
+    sh = base.SHAPES[shape]
+    b, s, d = sh.global_batch, sh.seq_len, cfg.d_model
+    e, k, f, cf = cfg.n_experts_padded, cfg.top_k, cfg.d_ff, \
+        cfg.capacity_factor
+    n_data, ep = MESHES["16x16"][1]
+    c = int(cf * b * s * k / e) + 1
+    bl = b // n_data
+    cap = min(max(int(cf * bl * s * k / e) + 1, 1), bl * s)
+    global_moe = 2 * b * s * d * e + 3 * 2 * e * c * d * f
+    ep_moe = n_data * ep * 2 * bl * s * d * e \
+        + n_data * e * 3 * 2 * cap * d * f
+    want = base_rec["op_cost"]["flops"] + cfg.n_layers * (ep_moe - global_moe)
+    assert rec["op_cost"]["flops"] == pytest.approx(want, rel=0.01)
+    assert rec["op_cost"]["flops"] != base_rec["op_cost"]["flops"]
 
 
 def test_dryrun_cli_writes_every_cell(tmp_path, capsys):
     """``main`` writes one record a cell under JAX's file names; the opt
-    variant of a mixed-window arch runs banded and is ok; the moe archs are
-    the only ones with ep_local cells."""
+    variant of a mixed-window arch runs banded and is ok, and so is a moe
+    arch's, on the expert-parallel dispatch; the moe archs are the only
+    ones with ep_local cells."""
     assert dryrun.main(["--arch", "gemma3-1b", "--shape", "decode_32k",
                         "--out", str(tmp_path)]) == 0
     assert dryrun.main(["--arch", "gemma3-1b", "--shape", "prefill_32k",
                         "--mesh", "single", "--variant", "opt",
                         "--out", str(tmp_path)]) == 0
+    assert dryrun.main(["--arch", "granite-moe-3b-a800m", "--shape",
+                        "decode_32k", "--mesh", "multi", "--variant", "opt",
+                        "--out", str(tmp_path)]) == 0
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "gemma3-1b_decode_32k_multi.json", "gemma3-1b_decode_32k_single.json",
-        "gemma3-1b_prefill_32k_single.opt.json"]
-    assert "1/1 cells passed" in capsys.readouterr().out
+        "gemma3-1b_prefill_32k_single.opt.json",
+        "granite-moe-3b-a800m_decode_32k_multi.opt.json"]
+    assert capsys.readouterr().out.count("1/1 cells passed") == 2
     assert {a for a, _ in EP_LOCAL_CELLS} == {
         a for a in ARCHS if base.get_arch(a).moe}
 

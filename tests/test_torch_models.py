@@ -706,9 +706,12 @@ def test_moe_router_tie_lower_index_wins():
 
 
 def test_moe_ffn_dispatch_modes():
-    """``moe_ffn`` takes the global or the rowwise dispatch as
-    ``moe_dispatch`` says, and raises for the expert-parallel one, which
-    needs a mesh the port does not have."""
+    """``moe_ffn`` takes the global, the rowwise or the expert-parallel
+    dispatch as ``moe_dispatch`` says; the expert-parallel one, under a
+    one-rank ("data", "model") mesh, equals the global dispatch within
+    ``MOE_TOL`` with the same kept choices."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import moe
     _, cfg, tree = _moe_tree(GRANITE, 6)
     p = {k: t(v) for k, v in tree.items()}
@@ -718,8 +721,11 @@ def test_moe_ffn_dispatch_modes():
                      ("rowwise", moe.moe_ffn_rowwise)):
         got, _ = moe.moe_ffn(p, cfg.replace(moe_dispatch=mode), x)
         assert torch.equal(got, fn(p, cfg, x)[0]), mode
-    with pytest.raises(NotImplementedError, match="ep_local"):
-        moe.moe_ffn(p, cfg.replace(moe_dispatch="ep_local"), x)
+    want, wx = moe.moe_ffn_global(p, cfg, x)
+    with sharding.use_mesh(MeshShape(("data", "model"), (1, 1))):
+        got, gx = moe.moe_ffn(p, cfg.replace(moe_dispatch="ep_local"), x)
+    _moe_close(got, want, "ep_local")
+    assert torch.equal(gx["kept"], wx["kept"])
 
 
 @pytest.fixture(scope="module")

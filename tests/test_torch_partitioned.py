@@ -22,10 +22,7 @@ point.
 """
 from __future__ import annotations
 
-import datetime
 import pickle
-import socket
-import sys
 import types
 
 import numpy as np
@@ -40,7 +37,8 @@ from repro_torch.core.tiers import TierConfig
 from repro_torch.distributed import collectives
 from repro_torch.obs import export
 from repro_torch.workloads import reference as R
-from torch_parity import assert_bit_equal, assert_trees_equal
+from torch_parity import (assert_bit_equal, assert_trees_equal, free_port,
+                          jax_modules, spawn_gloo)
 
 # the CFG of tests/test_partitioned_mesh.py
 CFG_KW = dict(key_space=1 << 12, fast_slots=256, slow_slots=1 << 12,
@@ -209,8 +207,8 @@ def test_group_and_device_rules():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PartitionedDB(cfg, 2)
-    port = _free_port()
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
                             world_size=1, rank=0)
     try:
         with pytest.raises(ValueError, match="more than one rank"):
@@ -336,12 +334,6 @@ def test_multitenant_run_workload_matches_jax(jx, monkeypatch):
 
 # ------------------------------------------------ process groups (gloo)
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _result(db, got: dict) -> dict:
     """What a run leaves, in numpy: the (gathered) stacked state,
     counters, drops, snapshot, and this process's get rows with their
@@ -368,51 +360,16 @@ def _ragged_matches_exchange(rank: int, p: int, world: int) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, want[:2]))
 
 
-def _gloo_rank(rank: int, world: int, p: int, port: int, out: str) -> None:
+def _gloo_rank(rank: int, world: int, p: int, out: str) -> None:
     """One rank of the gloo run: ``drive`` on this rank's partitions, the
     result written to ``out.<rank>``."""
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=60))
-    try:
-        db = PartitionedDB(TierConfig(**CFG_KW), p, seed=0, device="cpu",
-                           group=dist.group.WORLD)
-        res = _result(db, drive(db, W))
-        res["jax_modules"] = sorted(m for m in sys.modules if m == "jax"
-                                    or m.startswith(("jax.", "repro.")))
-        res["ragged_equal"] = _ragged_matches_exchange(rank, p, world)
-        with open(f"{out}.{rank}", "wb") as fh:
-            pickle.dump(res, fh)
-    finally:
-        dist.destroy_process_group()
-
-
-def _spawn(world: int, p: int, out: str) -> None:
-    """Run ``world`` gloo ranks; kill them all and fail if any is still
-    running after SPAWN_TIMEOUT_S or exits with an error."""
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=_gloo_rank, args=(r, world, p, port, out))
-             for r in range(world)]
-    for pr in procs:
-        pr.start()
-    deadline = datetime.datetime.now() + datetime.timedelta(
-        seconds=SPAWN_TIMEOUT_S)
-    try:
-        for pr in procs:
-            left = (deadline - datetime.datetime.now()).total_seconds()
-            pr.join(max(left, 0.0))
-        hung = [i for i, pr in enumerate(procs) if pr.is_alive()]
-        assert not hung, f"gloo ranks {hung} still running after " \
-            f"{SPAWN_TIMEOUT_S} s"
-        codes = [pr.exitcode for pr in procs]
-        assert codes == [0] * world, f"gloo ranks exited with {codes}"
-    finally:
-        for pr in procs:
-            if pr.is_alive():
-                pr.kill()
-                pr.join()
+    db = PartitionedDB(TierConfig(**CFG_KW), p, seed=0, device="cpu",
+                       group=dist.group.WORLD)
+    res = _result(db, drive(db, W))
+    res["jax_modules"] = jax_modules()
+    res["ragged_equal"] = _ragged_matches_exchange(rank, p, world)
+    with open(f"{out}.{rank}", "wb") as fh:
+        pickle.dump(res, fh)
 
 
 @pytest.mark.parametrize("world,p", [(2, 4), (4, 8)])
@@ -424,7 +381,7 @@ def test_gloo_group_matches_one_process(tmp_path, world, p):
     exchange's rows hold each source's bucket in rank order, so the
     valid lanes come in the one-process order)."""
     out = str(tmp_path / "rank")
-    _spawn(world, p, out)
+    spawn_gloo(_gloo_rank, world, p, out, timeout_s=SPAWN_TIMEOUT_S)
     one = PartitionedDB(TierConfig(**CFG_KW), p, seed=0, device="cpu")
     want = _result(one, drive(one, W))
     assert min(want["counters"]["compactions"]) > 0

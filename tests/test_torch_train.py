@@ -23,13 +23,10 @@ tests/test_torch_train.py``.
 """
 from __future__ import annotations
 
-import datetime
 import importlib.util
 import os
 import pickle
 import shutil
-import socket
-import sys
 import types
 from pathlib import Path
 
@@ -47,7 +44,7 @@ from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import data as data_mod
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import trainer as T
-from torch_parity import assert_bit_equal
+from torch_parity import assert_bit_equal, jax_modules, spawn_gloo
 
 ARCH = "stablelm-12b"
 MCFG = reduced(get_arch(ARCH))
@@ -576,28 +573,14 @@ def _ef_inputs(rank: int):
     return g, ef
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _ef_rank(rank: int, world: int, port: int, out: str) -> None:
+def _ef_rank(rank: int, world: int, out: str) -> None:
     """One gloo rank: ``compressed_all_reduce`` of its inputs, written to
     ``out.<rank>``."""
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=60))
-    try:
-        red, new_ef = collectives.compressed_all_reduce(
-            *_ef_inputs(rank), dist.group.WORLD)
-        with open(f"{out}.{rank}", "wb") as fh:
-            pickle.dump({"red": red.numpy(), "ef": new_ef.numpy(),
-                         "jax": [m for m in sys.modules if m == "jax"
-                                 or m.startswith(("jax.", "repro."))]}, fh)
-    finally:
-        dist.destroy_process_group()
+    red, new_ef = collectives.compressed_all_reduce(*_ef_inputs(rank),
+                                                    dist.group.WORLD)
+    with open(f"{out}.{rank}", "wb") as fh:
+        pickle.dump({"red": red.numpy(), "ef": new_ef.numpy(),
+                     "jax": jax_modules()}, fh)
 
 
 def test_compressed_all_reduce_gloo_matches_one_process(tmp_path):
@@ -605,22 +588,7 @@ def test_compressed_all_reduce_gloo_matches_one_process(tmp_path):
     values, bit-equal to the one-process sum in rank order, and its own
     residual, bit-equal to the one-process case (``group=None``)."""
     world, out = 2, str(tmp_path / "rank")
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=_ef_rank, args=(r, world, port, out))
-             for r in range(world)]
-    for pr in procs:
-        pr.start()
-    try:
-        for pr in procs:
-            pr.join(SPAWN_TIMEOUT_S)
-        assert not any(pr.is_alive() for pr in procs), "gloo ranks hung"
-        assert [pr.exitcode for pr in procs] == [0] * world
-    finally:
-        for pr in procs:
-            if pr.is_alive():
-                pr.kill()
-                pr.join()
+    spawn_gloo(_ef_rank, world, out, timeout_s=SPAWN_TIMEOUT_S)
     one = [collectives.compressed_all_reduce(*_ef_inputs(r))
            for r in range(world)]
     want = one[0][0] + one[1][0]

@@ -58,3 +58,63 @@ def t(x, dtype=None) -> torch.Tensor:
     """numpy -> CPU tensor (a copy)."""
     a = torch.from_numpy(np.array(x, copy=True))
     return a if dtype is None else a.to(dtype)
+
+
+# ------------------------------------------------ process groups (gloo)
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gloo_rank(rank: int, world: int, port: int, fn, args: tuple) -> None:
+    """One spawned rank: a gloo group on 127.0.0.1, then ``fn(rank, world,
+    *args)``; records in ``args``' files are ``fn``'s to write."""
+    import datetime
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_gloo(fn, world: int, *args, timeout_s: float = 120.0) -> None:
+    """Run ``fn(rank, world, *args)`` (a module-level function: the
+    children import its module, so that module imports no JAX at its top)
+    in ``world`` spawned gloo ranks; kill them all and fail if any still
+    runs after ``timeout_s`` or exits with an error."""
+    import time
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, world, port, fn, args))
+             for r in range(world)]
+    for pr in procs:
+        pr.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        for pr in procs:
+            pr.join(max(deadline - time.monotonic(), 0.0))
+        hung = [i for i, pr in enumerate(procs) if pr.is_alive()]
+        assert not hung, f"gloo ranks {hung} still running after " \
+            f"{timeout_s} s"
+        codes = [pr.exitcode for pr in procs]
+        assert codes == [0] * world, f"gloo ranks exited with {codes}"
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+
+
+def jax_modules() -> list:
+    """The JAX modules and the JAX package's modules this process has
+    imported (a gloo rank must have none)."""
+    import sys
+    return sorted(m for m in sys.modules if m == "jax"
+                  or m.startswith(("jax.", "repro.")))
