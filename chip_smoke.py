@@ -120,8 +120,9 @@ Phases, each printed as one JSON line:
                  argmax gate; times, bubble share, peak memory
   2o. moe_ep_local -- qwen3-moe-235b-a22b at full width, 4 of 94 layers:
                  each MoE layer on the model's own activations through
-                 the global dispatch and ep_local on a one-rank NCCL
-                 mesh and on a stand-in of 4 model ranks: kept pairs
+                 the global dispatch and ep_local on a 1x1 DeviceMesh
+                 (ep 1: the DeviceMesh dispatch, no collective runs) and
+                 on a stand-in of 4 model ranks: kept pairs
                  equal, outputs within MOE_TOL, aux equal, ep_local's
                  dropped 0 (F8) beside the global drops; the whole
                  forward under both through the argmax gate
@@ -400,8 +401,8 @@ PIPE_STAGES, PIPE_MICRO = 2, 2
 # heads / 4 KV of 128, 128 experts top-8 of d_ff 1,536, vocab 151,936
 # untied), depth cut 94 -> MOE_LAYERS (9.7 GB of experts a layer; 4
 # layers are 44.8 GB in float32), float32 weights from MOE_SEED, tokens
-# from MOE_TOKENS_SEED; ep_local on a one-rank NCCL mesh and on a
-# stand-in of MOE_RANKS model ranks of 32 experts, against the global
+# from MOE_TOKENS_SEED; ep_local on a 1x1 DeviceMesh (ep 1, so no
+# collective runs) and on a stand-in of MOE_RANKS model ranks of 32 experts, against the global
 # dispatch.  Their outputs differ only in float32 summation order (the
 # experts' matmul shapes, a token's 8 outputs added in expert order):
 # within MOE_TOL (relative, Frobenius norm); aux within MOE_AUX_TOL
@@ -4593,14 +4594,17 @@ def moe_ep_local_phase(device=None) -> dict:
     """qwen3-moe-235b-a22b at its published width, MOE_LAYERS layers:
     every MoE layer, on the model's own activations (the "cuda" forward's
     hidden state, B7 in its attention), through the global dispatch and
-    through ``moe_ffn_ep_local`` on a one-rank ("data", "model")
-    ``DeviceMesh`` over an NCCL group (the collective path) and on a
-    stand-in of MOE_RANKS model ranks (each rank's experts in turn).
-    Gates: the kept (token, expert) pairs equal the global dispatch's;
-    outputs within MOE_TOL (relative); aux within MOE_AUX_TOL; ep_local's
-    ``dropped`` is 0 whatever the global dispatch drops (F8, logged).
-    Then the whole forward under both dispatches (ep_local on the NCCL
-    mesh) through the argmax gate of prefill, each timed."""
+    through ``moe_ffn_ep_local`` on a 1x1 ("data", "model")
+    ``DeviceMesh`` over a one-rank NCCL group (the DeviceMesh dispatch at
+    ep 1: it skips the "model" group's ``all_reduce``, so no collective
+    runs on the card) and on a stand-in of MOE_RANKS model ranks (each
+    rank's experts in turn).  Gates: the kept (token, expert) pairs
+    (``moe.ep_local_kept`` of ep_local's experts, outside the dispatch)
+    equal the global dispatch's; outputs within MOE_TOL (relative); aux
+    within MOE_AUX_TOL; ep_local's ``dropped`` is 0 whatever the global
+    dispatch drops (F8, logged).  Then the whole forward under both
+    dispatches (ep_local on the 1x1 DeviceMesh) through the argmax gate
+    of prefill, each timed."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs.base import get_arch
@@ -4653,7 +4657,7 @@ def moe_ep_local_phase(device=None) -> dict:
                        "global_dropped": float(wx["dropped"]),
                        "global_aux": float(wx["aux_loss"]),
                        "kept_pairs": int(wx["kept"].sum())}
-                for name, m in (("nccl_one_rank", local),
+                for name, m in (("device_mesh_1x1", local),
                                 (f"stand_in_{MOE_RANKS}_ranks", stand_in)):
                     t0 = time.time()
                     with sharding.use_mesh(m):
@@ -4661,8 +4665,9 @@ def moe_ep_local_phase(device=None) -> dict:
                     torch.cuda.synchronize()
                     r = {"s": time.time() - t0, "rel_err": _rel(got, want),
                          "max_abs_err": float((got - want).abs().max()),
-                         "kept_equal": bool(torch.equal(gx["kept"],
-                                                        wx["kept"])),
+                         "kept_equal": bool(torch.equal(
+                             moe.ep_local_kept(cfg, gx["experts"]),
+                             wx["kept"])),
                          "experts_equal": bool(torch.equal(
                              gx["experts"], wx["experts"])),
                          "aux": float(gx["aux_loss"]),

@@ -10,7 +10,8 @@ plain versions).  Runs a small dense model behind the continuous-
 batching engine with a deliberately small fast page pool, so the PrismDB
 machinery works visibly: cold pages demote into slow runs, selected hot
 pages stay resident, re-heated pages promote back.  The weights come
-from a torch generator, so the tokens are not the JAX example's.
+from a torch generator unless ``main`` is handed others (the tests hand
+it the JAX example's, carried across by ``model.params_from_numpy``).
 """
 import argparse
 import time
@@ -25,7 +26,7 @@ from repro_torch.models import model as M
 from repro_torch.serve.engine import Request, ServeEngine
 
 
-def main(argv=None):
+def main(argv=None, params=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
@@ -34,8 +35,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     mcfg = reduced(get_arch("phi4-mini-3.8b"))
-    params = M.init_params(mcfg, torch.Generator(dev).manual_seed(0),
-                           device=dev)
+    if params is None:
+        params = M.init_params(mcfg, torch.Generator(dev).manual_seed(0),
+                               device=dev)
     kv_cfg = PagedKVConfig(
         n_layers=mcfg.n_layers, kv_heads=mcfg.n_kv_heads,
         head_dim=mcfg.head_dim, page_tokens=8,

@@ -16,9 +16,10 @@ sort is stable and the rank in a group comes from ``searchsorted``
 dropped token sent to one spare row past the buffer; the combine adds a
 token's k contributions in a fixed order (choice 0, 1, ...) with no
 atomics, so the card's result does not depend on launch order (JAX adds
-them into zeros in expert order: the same sum for k = 2).  The JAX
-package's expert-parallel dispatch (``moe_dispatch`` "ep_local") needs
-a mesh, which the port does not have yet: it raises.
+them into zeros in expert order: the same sum for k = 2).  The
+expert-parallel dispatch (``moe_dispatch`` "ep_local",
+``moe_ffn_ep_local``) runs each "model" rank's experts over its batch
+shard of the ambient mesh (``sharding.use_mesh``) and sums the parts.
 """
 from __future__ import annotations
 
@@ -166,8 +167,8 @@ def moe_ffn_ep_local(params, cfg: ModelConfig, x):
     tokens that picked it, in position order, and the partial outputs
     are summed over the ranks; ``aux_loss`` is their mean.  ``dropped``
     is 0, as the JAX package returns it whatever the capacity drops
-    (ROADMAP Queue 3, F8); ``kept`` [B, S, k] says which choices the
-    capacity kept, and ``experts`` [B, S, k] is each token's top-k.
+    (ROADMAP Queue 3, F8); ``experts`` [B, S, k] is each token's top-k,
+    from which ``ep_local_kept`` tells the choices the capacity kept.
 
     The mesh decides where the parts run:
 
@@ -180,7 +181,9 @@ def moe_ffn_ep_local(params, cfg: ModelConfig, x):
       value JAX's unchecked replicated output holds (PERF.md);
     * a named ``DeviceMesh``: ``x`` is this rank's batch shard (plain
       tensors, every expert's weights), and the sums run over the
-      "model" group (``all_reduce``);
+      "model" group (``all_reduce``); ``aux_loss`` is this rank's own
+      shard's, so ranks of different data shards hold different values,
+      as each device does under JAX's unchecked output (PERF.md);
     * meta tensors: one part, counted once per part
       (``roofline/op_cost.counted_times``): every part has the same
       shapes, so the count is exact.
@@ -204,13 +207,13 @@ def moe_ffn_ep_local(params, cfg: ModelConfig, x):
     bl = b // n_data
     if x.device.type == "meta":
         from repro_torch.roofline.op_cost import counted_times
-        out, aux, kept, top_e = counted_times(
+        out, aux, top_e = counted_times(
             n_data * ep, functools.partial(_ep_experts, cfg, 0), x[:bl],
             params["router"], *_expert_slice(params, 0, e_loc))
         cat = lambda t: torch.cat([t] * n_data)
         return cat(out), {"aux_loss": aux, "dropped": _no_drops(x),
-                          "experts": cat(top_e), "kept": cat(kept)}
-    outs, kepts, tops, auxs = [], [], [], []
+                          "experts": cat(top_e)}
+    outs, tops, auxs = [], [], []
     for i in range(n_data):
         xs = x[i * bl:(i + 1) * bl]
         parts = [_ep_part(params, cfg, xs, r * e_loc, e_loc)
@@ -220,11 +223,27 @@ def moe_ffn_ep_local(params, cfg: ModelConfig, x):
             out = out + p[0]
         outs.append(out)
         auxs.append(sum(p[1] for p in parts) / ep)
-        kepts.append(torch.stack([p[2] for p in parts]).any(0))
-        tops.append(parts[0][3])
+        tops.append(parts[0][2])
     return torch.cat(outs), {"aux_loss": auxs[0], "dropped": _no_drops(x),
-                             "experts": torch.cat(tops),
-                             "kept": torch.cat(kepts)}
+                             "experts": torch.cat(tops)}
+
+
+def ep_local_kept(cfg: ModelConfig, experts, n_data: int = 1):
+    """The top-k choices ``moe_ffn_ep_local`` keeps, from its ``experts``
+    extra [B, S, k] and its capacity rule: in each of ``n_data`` batch
+    shards and for each expert, the first ``cap_l`` tokens that chose it,
+    in position order (a token chooses an expert at most once, and every
+    choice's router weight is positive).  Returns [B, S, k] bool; the
+    dispatch itself never computes it."""
+    b, s, k = experts.shape
+    e = cfg.n_experts_padded or cfg.n_experts
+    t = b // n_data * s
+    cap = min(max(int(cfg.capacity_factor * t * k / e) + 1, 1), t)
+    fe = experts.reshape(n_data, t, k)
+    chose = (fe[..., None] == torch.arange(e, device=experts.device)) \
+        .any(2).to(torch.int32)                                 # [n, T, E]
+    before = torch.cumsum(chose, 1) - chose
+    return (torch.gather(before, 2, fe) < cap).reshape(b, s, k)
 
 
 def _no_drops(x):
@@ -238,16 +257,12 @@ def _ep_on_mesh(params, cfg: ModelConfig, x, mesh, e_loc: int):
     from torch.distributed.nn.functional import all_reduce
     group = mesh.get_group("model")
     ep = dist.get_world_size(group)
-    out, aux, kept, top_e = _ep_part(
+    out, aux, top_e = _ep_part(
         params, cfg, x, mesh.get_local_rank("model") * e_loc, e_loc)
     if ep > 1:
         out = all_reduce(out, group=group)
         aux = all_reduce(aux, group=group) / ep
-        kept = kept.to(torch.int32)
-        dist.all_reduce(kept, group=group)
-        kept = kept > 0
-    return out, {"aux_loss": aux, "dropped": _no_drops(x), "experts": top_e,
-                 "kept": kept}
+    return out, {"aux_loss": aux, "dropped": _no_drops(x), "experts": top_e}
 
 
 def _expert_slice(params, lo: int, e_loc: int) -> list:
@@ -257,8 +272,7 @@ def _expert_slice(params, lo: int, e_loc: int) -> list:
 def _ep_part(params, cfg: ModelConfig, xs, lo: int, e_loc: int):
     """One rank's part: its batch shard ``xs`` [bl, S, D] routed over
     all experts, experts [lo, lo + e_loc) run.  Returns (partial out
-    [bl, S, D], aux, kept [bl, S, k] for those experts' choices, top_e
-    [bl, S, k])."""
+    [bl, S, D], aux, top_e [bl, S, k])."""
     return _ep_experts(cfg, lo, xs, params["router"],
                        *_expert_slice(params, lo, e_loc))
 
@@ -276,7 +290,6 @@ def _ep_experts(cfg: ModelConfig, lo: int, xs, router, w_gate, w_up,
     top_p, top_e, aux = _route({"router": router}, cfg, xt)     # [T, k]
     cap = min(max(int(cfg.capacity_factor * t * k / e) + 1, 1), t)
     out = torch.zeros((t, d), dtype=xs.dtype, device=dev)
-    kept = torch.zeros((t, k), dtype=torch.bool, device=dev)
     for j in range(w_gate.shape[0]):
         hit = top_e == lo + j                                   # [T, k]
         w_tok = torch.sum(torch.where(hit, top_p, 0.0), dim=-1)
@@ -291,8 +304,4 @@ def _ep_experts(cfg: ModelConfig, lo: int, xs, router, w_gate, w_up,
         h = F.silu(xe @ w_gate[j]) * (xe @ w_up[j])
         oe = (h @ w_down[j]) * w_tok[idx][:, None].to(xs.dtype)
         out = out.index_add(0, idx, torch.where(keep[:, None], oe, 0))
-        mark = torch.zeros(t, dtype=torch.bool, device=dev)
-        mark[idx] = keep
-        kept = kept | (hit & mark[:, None])
-    return (out.reshape(bl, s, d), aux, kept.reshape(bl, s, k),
-            top_e.reshape(bl, s, k))
+    return out.reshape(bl, s, d), aux, top_e.reshape(bl, s, k)

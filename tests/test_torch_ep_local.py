@@ -6,12 +6,14 @@ JAX's ``moe_ffn_ep_local`` runs in this process under a (1, 1)
 ``MeshShape`` of the same axes.  Held: outputs within ``MOE_TOL`` (the
 tolerance of tests/test_torch_models.py's MoE tests), ``aux_loss`` atol
 1e-6, each token's top-k experts equal, and the kept (token, expert)
-pairs equal to JAX's own selection (its per-expert ``lax.top_k`` of
-position scores, recomputed here with JAX's ops).  ``dropped`` is 0 in
+pairs that ``moe.ep_local_kept`` derives from the port's experts equal
+to JAX's own selection (its per-expert ``lax.top_k`` of position
+scores, recomputed here with JAX's ops).  ``dropped`` is 0 in
 both packages at a capacity where the global dispatch drops (reference
 fault F8).  The data axis stays 1 here: at data > 1 JAX's ``aux_loss``
 is the first data shard's (PERF.md), which the stand-in case pins on the
-port alone.  The port's rank parts (a stand-in of 2 and 4 model ranks, 2
+port alone; on a ``DeviceMesh`` of 2 gloo data ranks each rank holds its
+own shard's.  The port's rank parts (a stand-in of 2 and 4 model ranks, 2
 gloo ranks) are held to the one-rank result, and its meta-device count
 (one part counted once per part) to the count of every part run.
 
@@ -142,7 +144,8 @@ def test_ep_local_matches_jax(jx, case, cf):
     np.testing.assert_allclose(float(gx["aux_loss"]), want["aux"],
                                atol=1e-6, rtol=0)
     assert np.array_equal(gx["experts"].numpy(), want["experts"])
-    assert np.array_equal(gx["kept"].numpy(), want["kept"])
+    assert np.array_equal(moe.ep_local_kept(cfg, gx["experts"]).numpy(),
+                          want["kept"])
     assert float(gx["dropped"]) == want["dropped"] == 0.0
     _, glob = moe.moe_ffn_global({k: t(v) for k, v in tree.items()}, cfg,
                                  t(x))
@@ -169,8 +172,11 @@ def test_ep_local_ranks_in_turn_equal_one_rank(case, shape):
     want = torch.cat([h[0] for h in halves])
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=MOE_TOL,
                                rtol=MOE_TOL)
-    for key in ("kept", "experts"):
-        assert torch.equal(gx[key], torch.cat([h[1][key] for h in halves]))
+    assert torch.equal(gx["experts"],
+                       torch.cat([h[1]["experts"] for h in halves]))
+    assert torch.equal(
+        moe.ep_local_kept(cfg, gx["experts"], shape[0]),
+        torch.cat([moe.ep_local_kept(cfg, h[1]["experts"]) for h in halves]))
     assert float(gx["aux_loss"]) == pytest.approx(
         float(halves[0][1]["aux_loss"]), abs=1e-6)
     assert float(gx["dropped"]) == 0.0
@@ -228,21 +234,39 @@ def test_ep_local_meta_counts_every_part(shape, backward):
 
 
 def _ep_rank(rank: int, world: int, src: str, out: str) -> None:
-    """One model rank of the gloo run: ``moe_ffn_ep_local`` on a
-    ("data", "model") ``DeviceMesh`` of 1 x ``world``, every rank handed
-    the whole batch (its data shard), the result to ``out.<rank>``."""
+    """One rank of the gloo run: ``moe_ffn_ep_local`` on a ("data",
+    "model") ``DeviceMesh`` of the pickled shape, each rank handed its
+    data shard of the batch, the result to ``out.<rank>``."""
     from torch.distributed.device_mesh import init_device_mesh
     with open(src, "rb") as fh:
-        case, cf, tree, x = pickle.load(fh)
+        case, cf, tree, x, shape = pickle.load(fh)
     cfg = _cfg(case, cf)
-    mesh = init_device_mesh("cpu", (1, world),
-                            mesh_dim_names=("data", "model"))
-    got, gx = _port(cfg, tree, x, mesh)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    bl = x.shape[0] // shape[0]
+    i = mesh.get_local_rank("data")
+    got, gx = _port(cfg, tree, x[i * bl:(i + 1) * bl], mesh)
     with open(f"{out}.{rank}", "wb") as fh:
         pickle.dump({"out": got.numpy(), "aux": float(gx["aux_loss"]),
-                     "kept": gx["kept"].numpy(),
+                     "experts": gx["experts"].numpy(),
                      "dropped": float(gx["dropped"]),
                      "jax": jax_modules()}, fh)
+
+
+def _gloo(case, x, shape, tmp_path) -> list:
+    """``_ep_rank`` on every rank of a gloo mesh of ``shape`` at capacity
+    factor 0.5; each rank's result."""
+    _, tree = _tree(case, 0.5)
+    src = tmp_path / "inputs.pkl"
+    with open(src, "wb") as fh:
+        pickle.dump((case, 0.5, tree, x, shape), fh)
+    out = str(tmp_path / "rank")
+    spawn_gloo(_ep_rank, shape[0] * shape[1], str(src), out)
+    got = []
+    for r in range(shape[0] * shape[1]):
+        with open(f"{out}.{r}", "rb") as fh:
+            got.append(pickle.load(fh))
+    assert all(g["jax"] == [] for g in got)
+    return got
 
 
 @pytest.mark.parametrize("case", ["qwen3", "qwen3_top8"])
@@ -250,21 +274,30 @@ def test_ep_local_gloo_two_model_ranks(case, tmp_path):
     """ep = 2 over two gloo ranks (4 or 8 experts each, the partial
     outputs summed by ``all_reduce`` over the "model" group, the kept
     pairs gathered): every rank holds the one-rank result within
-    ``MOE_TOL``, its kept pairs and its aux."""
+    ``MOE_TOL``, its experts (so its kept pairs) and its aux."""
     cfg, tree = _tree(case, 0.5)
     x = _x(cfg)
-    src = tmp_path / "inputs.pkl"
-    with open(src, "wb") as fh:
-        pickle.dump((case, 0.5, tree, x), fh)
-    out = str(tmp_path / "rank")
-    spawn_gloo(_ep_rank, 2, str(src), out)
     want, wx = _port(cfg, tree, x, ONE)
-    for r in range(2):
-        with open(f"{out}.{r}", "rb") as fh:
-            got = pickle.load(fh)
-        assert got["jax"] == []
+    for got in _gloo(case, x, (1, 2), tmp_path):
         np.testing.assert_allclose(got["out"], want.numpy(), atol=MOE_TOL,
                                    rtol=MOE_TOL)
-        assert np.array_equal(got["kept"], wx["kept"].numpy())
+        assert np.array_equal(got["experts"], wx["experts"].numpy())
         assert got["aux"] == pytest.approx(float(wx["aux_loss"]), abs=1e-6)
         assert got["dropped"] == 0.0
+
+
+def test_ep_local_gloo_two_data_ranks_hold_their_own_aux(tmp_path):
+    """data = 2 over two gloo ranks (one model rank each): each rank
+    holds its own batch shard's one-rank result and ``aux_loss``, so the
+    two ranks' aux differ, where the stand-in returns shard 0's on both
+    (the value JAX's unchecked replicated output reads, PERF.md)."""
+    cfg, tree = _tree("qwen3", 0.5)
+    x = _x(cfg, b=4)
+    got = _gloo("qwen3", x, (2, 1), tmp_path)
+    for r, g in enumerate(got):
+        want, wx = _port(cfg, tree, x[2 * r:2 * r + 2], ONE)
+        np.testing.assert_allclose(g["out"], want.numpy(), atol=MOE_TOL,
+                                   rtol=MOE_TOL)
+        assert np.array_equal(g["experts"], wx["experts"].numpy())
+        assert g["aux"] == pytest.approx(float(wx["aux_loss"]), abs=1e-6)
+    assert got[0]["aux"] != got[1]["aux"]

@@ -725,7 +725,7 @@ def test_moe_ffn_dispatch_modes():
     with sharding.use_mesh(MeshShape(("data", "model"), (1, 1))):
         got, gx = moe.moe_ffn(p, cfg.replace(moe_dispatch="ep_local"), x)
     _moe_close(got, want, "ep_local")
-    assert torch.equal(gx["kept"], wx["kept"])
+    assert torch.equal(moe.ep_local_kept(cfg, gx["experts"]), wx["kept"])
 
 
 @pytest.fixture(scope="module")
