@@ -195,10 +195,14 @@ Phases, each printed as one JSON line:
                  candidates the msc_score kernel and the plain scorer rank
                  differently on a near-tie
   6. dryrun   -- the port's dry run of every arch x applicable shape x
-                 mesh, baseline and opt, on the meta device in two host
-                 processes started before the kernel checks: every cell
-                 of both variants ok (the opt moe cells on ep_local); the
-                 banded_prefill cell's check
+                 mesh, baseline and opt, on the meta device and on
+                 DTensors as rank 0 of the mesh, in four host processes
+                 started before the kernel checks: every cell of both
+                 variants ok (the opt moe cells on ep_local) with its
+                 collectives and hlo_cost; each cell's collective bytes
+                 and dominant roofline term, and JAX's three opt cells'
+                 bound against the baseline's; the banded_prefill cell's
+                 check, predicted collective bytes 0 on one rank
 Then the kernels line, the nvidia-smi line, and the final ok line.  The
 sizes are the module constants below; PERF.md ("Scale used") says why.
 
@@ -4076,18 +4080,28 @@ BANDED_MODEL = "gemma3-1b"
 BANDED_SEED, BANDED_TOKENS_SEED = 26, 27
 BANDED_BATCH, BANDED_SEQ = 2, 4096
 # dryrun: the port's dry run, baseline and opt, over every arch x
-# applicable shape x mesh, on the meta device in two processes of the
-# card's host started before the kernel checks (chiprun_out/dryrun_torch,
-# chiprun_out/dryrun_{variant}.log).
+# applicable shape x mesh, on the meta device and on DTensors, in four
+# processes of the card's host started before the kernel checks, one a
+# (variant, mesh): ~210 s for the 256-chip cells and ~430 s for the
+# 512-chip ones there, off the smoke's critical path, and two cores fewer
+# taken from its host-bound phases than one process a half of the
+# 512-chip cells (chiprun_out/dryrun_torch,
+# chiprun_out/dryrun_{variant}_{part}.log)
 DRYRUN_VARIANTS = ("baseline", "opt")
+DRYRUN_PARTS = ("single", "multi")
 DRYRUN_WAIT_S = 600
+# JAX's opt-variant cells (tests/test_dryrun_artifacts.py), single pod
+DRYRUN_OPT_CELLS = (("qwen3-moe-235b-a22b", "train_4k"),
+                    ("starcoder2-15b", "decode_32k"),
+                    ("gemma3-1b", "train_4k"))
 
 
 def start_dryrun() -> list:
-    """Start the dry run of every cell, one process a variant, with no
-    card visible to them, at the lowest CPU priority (niceness 19), so
-    that the timed host-bound phases that run beside them take the host
-    first.  Returns [(variant, process, start time, log file)]."""
+    """Start the dry run of every cell, one process a variant and mesh
+    (``DRYRUN_PARTS``), with no card visible to them, at the lowest CPU
+    priority (niceness 19), so that the timed host-bound phases that run beside
+    them take the host first.  Returns [(variant, process, start time,
+    log file)]."""
     import os
     out = OUT / "dryrun_torch"
     out.mkdir(parents=True, exist_ok=True)
@@ -4097,12 +4111,13 @@ def start_dryrun() -> list:
            "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
     procs = []
     for variant in DRYRUN_VARIANTS:
-        log = open(OUT / f"dryrun_{variant}.log", "w")
-        procs.append((variant, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
-             str(out), "--variant", variant], cwd=ROOT, env=env,
-            stdout=log, stderr=subprocess.STDOUT,
-            preexec_fn=lambda: os.nice(19)), time.time(), log))
+        for mesh in DRYRUN_PARTS:
+            log = open(OUT / f"dryrun_{variant}_{mesh}.log", "w")
+            procs.append((variant, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+                 str(out), "--variant", variant, "--mesh", mesh], cwd=ROOT,
+                env=env, stdout=log, stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(19)), time.time(), log))
     return procs
 
 
@@ -4358,8 +4373,10 @@ def dryrun_cell_check(cfg, params, batch, forward_s: float) -> dict:
     """The dry run's prediction for the banded_prefill cell held against
     the card: on a 1x1 ``make_local_mesh`` (a one-rank NCCL group), the
     argument bytes predicted from meta tensors of the run's shapes and
-    dtypes must equal the bytes its params and inputs hold, and the
-    embedding table laid out by ``placements`` must come back whole.  On
+    dtypes must equal the bytes its params and inputs hold, the
+    embedding table laid out by ``placements`` must come back whole, and
+    the cell run on DTensors on that mesh (``dryrun.spmd_count``) must
+    predict no collective.  On
     one rank no leaf is cut, so this confirms shapes and dtypes only (the
     sharded bytes are held to DTensor's local shards on the CPU, in
     tests/test_torch_launch.py);
@@ -4396,6 +4413,10 @@ def dryrun_cell_check(cfg, params, batch, forward_s: float) -> dict:
         whole = bool(torch.equal(d.full_tensor(), emb))
         axes = sharding.mesh_axes(mesh)
         del d
+        t0 = time.time()
+        one_rank = dryrun.spmd_count(dryrun.build_cell(
+            cfg, shape, sharding.DEFAULT_RULES, False), mesh)
+        spmd_s = time.time() - t0
     finally:
         dist.destroy_process_group()
     t0 = time.time()
@@ -4408,14 +4429,19 @@ def dryrun_cell_check(cfg, params, batch, forward_s: float) -> dict:
            "embed_distributed_whole": whole,
            "op_cost_flops": cost["flops"], "op_cost_bytes": cost["bytes"],
            "op_cost_s": cost_s, "model_flops": mf,
+           "one_rank_collective_bytes": one_rank["collective_bytes"],
+           "one_rank_collectives": one_rank["collectives"],
+           "one_rank_flops": one_rank["flops"], "spmd_s": spmd_s,
            "forward_s": forward_s,
            "compute_s_f32": cost["flops"] / analysis.PEAK_FLOPS_F32,
            "model_compute_s_f32": mf / analysis.PEAK_FLOPS_F32,
            "mfu_f32": mf / analysis.PEAK_FLOPS_F32 / forward_s}
-    if predicted != held or not whole:
+    if predicted != held or not whole or one_rank["collective_bytes"]:
         raise AssertionError(f"dryrun: predicted argument bytes "
                              f"{predicted} != {held} held, or the "
-                             f"distributed table came back changed")
+                             f"distributed table came back changed, or "
+                             f"one rank is predicted to communicate "
+                             f"{one_rank['collectives']}")
     return out
 
 
@@ -4428,6 +4454,8 @@ def dryrun_phase(procs: list, cell: dict) -> dict:
     from repro_torch.configs.base import (all_archs, applicable_shapes,
                                           get_arch)
     recs = {v: [] for v in DRYRUN_VARIANTS}
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.roofline import analysis
     out = {"phase": "dryrun", "cell_check": cell}
     fails = []
     for variant, p, t0, log in procs:
@@ -4435,9 +4463,10 @@ def dryrun_phase(procs: list, cell: dict) -> dict:
             rc = p.wait(timeout=DRYRUN_WAIT_S)
         except subprocess.TimeoutExpired:
             rc = None
-            fails.append(f"the {variant} dry run did not finish")
-        out[f"{variant}_s"] = time.time() - t0
-        out[f"{variant}_rc"] = rc
+            fails.append(f"a {variant} dry-run process did not finish")
+        out[f"{variant}_s"] = max(out.get(f"{variant}_s", 0.0),
+                                  time.time() - t0)
+        out.setdefault(f"{variant}_rc", []).append(rc)
     for f in sorted((OUT / "dryrun_torch").glob("*.json")):
         rec = json.loads(f.read_text())
         recs[rec["variant"]].append(rec)
@@ -4457,6 +4486,28 @@ def dryrun_phase(procs: list, cell: dict) -> dict:
             fails.append(f"{variant}: {len(cells - got)} cells missing")
         if bad:
             fails.append(f"{variant}: failed {sorted(bad)}")
+        unfilled = sorted("_".join((r["arch"], r["shape"], r["mesh"]))
+                          for r in recs[variant] if r["ok"] and (
+                              not isinstance(r.get("collectives"), dict)
+                              or r.get("hlo_cost") is None))
+        if unfilled:
+            fails.append(f"{variant}: no collectives or hlo_cost in "
+                         f"{unfilled}")
+    roof = {v: {(r["arch"], r["shape"], r["mesh"]): analysis.from_record(
+        r, get_arch(r["arch"]), SHAPES[r["shape"]])
+        for r in recs[v] if r["ok"] and r.get("hlo_cost")}
+        for v in DRYRUN_VARIANTS}
+    emit({"phase": "dryrun_cells", "cells": {
+        v: {"_".join(c): {"collective_bytes": rf.coll_bytes,
+                          "dominant": rf.dominant, "bound_s": rf.bound_s}
+            for c, rf in sorted(roof[v].items())}
+        for v in DRYRUN_VARIANTS}})
+    out["dominant"] = {v: dict(collections.Counter(
+        rf.dominant for rf in roof[v].values())) for v in DRYRUN_VARIANTS}
+    out["opt_cells"] = {f"{a}_{s}": {v: roof[v][a, s, "16x16"].bound_s
+                                     if (a, s, "16x16") in roof[v] else None
+                                     for v in DRYRUN_VARIANTS}
+                        for a, s in DRYRUN_OPT_CELLS}
     out["ok"] = not fails
     if fails:
         emit(out)

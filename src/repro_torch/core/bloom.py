@@ -55,6 +55,34 @@ def make_row(keys: torch.Tensor, valid: torch.Tensor, n_words: int,
                      k_hashes)[0]
 
 
+def set_run(filters: torch.Tensor, run_id, keys: torch.Tensor,
+            valid: torch.Tensor, k_hashes: int = 4) -> torch.Tensor:
+    """``filters`` with row ``run_id`` replaced by a fresh filter over
+    ``keys[valid]`` (a new tensor; ``filters`` is kept)."""
+    out = filters.clone()
+    out[run_id] = make_row(keys, valid, filters.shape[1], k_hashes)
+    return out
+
+
+def clear_run(filters: torch.Tensor, run_id) -> torch.Tensor:
+    """``filters`` with row ``run_id`` emptied (a new tensor)."""
+    out = filters.clone()
+    out[run_id] = 0
+    return out
+
+
+def query(filters: torch.Tensor, run_ids: torch.Tensor, keys: torch.Tensor,
+          k_hashes: int = 4) -> torch.Tensor:
+    """bool[R, n]: might run ``run_ids[r]`` contain ``keys[j]``?"""
+    n_bits = filters.shape[1] * 32
+    pos = _positions(keys, n_bits, k_hashes)                 # [k, n]
+    word, bit = pos // 32, pos % 32
+    rows = filters[run_ids.to(torch.int64)]                  # [R, W]
+    got = rows[:, word].to(torch.int64)                      # [R, k, n]
+    hit = (got >> bit[None]) & 1
+    return (hit == 1).all(dim=1)
+
+
 def query_per_key(filters: torch.Tensor, run_of_key: torch.Tensor,
                   keys: torch.Tensor, k_hashes: int = 4) -> torch.Tensor:
     """bool[n]: might run ``run_of_key[j]`` contain ``keys[j]``?

@@ -27,7 +27,8 @@ import torch
 from repro_torch.core import bloom, mapper, msc, prng, tracker
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.tiers import (Counters, TierConfig, TierState,
-                                    bucket_of, run_of_keys, tier_occupancy)
+                                    bucket_of, fast_occupancy, run_of_keys,
+                                    tier_occupancy)
 from repro_torch.core.utils import (PADKEY, add_where, alloc_slots, fdiv,
                                     merge_index_update, nonzero_fixed,
                                     searchsorted, segment_in_range,
@@ -755,6 +756,12 @@ def compact_boundary(state: TierState, cfg: TierConfig, boundary: int, *,
         m_key=mkeys.to(i32),
         boundary=torch.full((), boundary, dtype=i32, device=dev))
     return new_state, stats, mv
+
+
+def below_low_watermark(state: TierState, cfg: TierConfig
+                        ) -> torch.Tensor:
+    """The fast tier's occupancy is under ``cfg.low_watermark``."""
+    return fast_occupancy(state) < cfg.low_watermark
 
 
 def tier_over_watermark(state: TierState, cfg: TierConfig,

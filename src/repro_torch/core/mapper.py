@@ -44,6 +44,15 @@ def pin_decisions(clock: torch.Tensor, tracked: torch.Tensor,
     return u < p
 
 
+def expected_pinned_fraction(hist: torch.Tensor, probs: torch.Tensor
+                             ) -> torch.Tensor:
+    """The share of tracked objects expected to pin: the clock
+    histogram ``hist`` weighted by the pin probabilities ``probs``
+    (float32)."""
+    hist = hist.to(torch.float32)
+    return torch.sum(hist * probs) / torch.clamp(torch.sum(hist), min=1.0)
+
+
 def coldness_from_clock(clock: torch.Tensor, tracked: torch.Tensor
                         ) -> torch.Tensor:
     """coldness(j) = 1 / (clock_j + 1); untracked -> coldness 1."""

@@ -19,6 +19,18 @@ stand-in for the 256- and 512-chip meshes), or a
 (``named_sharding_tree`` for a tree, ``leading_axis_sharding`` for a
 stacked per-partition state).
 
+``distribute_tree`` lays a tree of tensors out as DTensors by their
+logical specs, each leaf's local shard cut from it (meta tensors give
+meta shards, so a full-width cell costs no memory); ``batch_like`` lays
+a tensor the model makes (positions) out over the mesh axes that shard
+an activation's batch; ``on_local_shards`` runs a function on the local
+shards of its DTensor arguments, as JAX's ``shard_map`` runs its body,
+after redistributing each to the placements it needs (so every gather
+that needs is issued, and counted by ``roofline/comm_cost``).
+``register_strategies`` gives DTensor the sharding strategies it lacks
+for operations the models run (``aten.searchsorted``, batched over its
+leading dimensions).
+
 The model code imports this module for ``constrain``, so
 ``torch.distributed.tensor`` is imported only where a DTensor is made
 or read.
@@ -37,6 +49,9 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+
+import torch
+import torch.nn.functional as F
 
 from repro_torch.core.tree import is_spec, map_tree
 
@@ -167,7 +182,7 @@ def constrain(x, logical):
         raise ValueError("constrain: the DTensor lies on another mesh than "
                          "the ambient one")
     spec = logical_to_spec(logical, mesh, shape=x.shape)
-    return x.redistribute(mesh, placements(spec, mesh))
+    return x.redistribute(mesh, _on_ranks(placements(spec, mesh), mesh))
 
 
 def spec_tree(specs, shapes, mesh):
@@ -224,3 +239,197 @@ def leading_axis_sharding(tree, mesh, logical: str = "part"):
     return map_tree(lambda x: placements(logical_to_spec(
         (logical,) + (None,) * (x.dim() - 1), mesh, shape=x.shape), mesh),
         tree)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (without importing DTensor for a plain
+    tensor)."""
+    return type(x).__name__ == "DTensor"
+
+
+def _on_ranks(placements_: list, mesh) -> list:
+    """``placements_`` with a mesh dimension of one rank replicated: the
+    same layout, which DTensor then never has to unshard."""
+    from torch.distributed.tensor import Replicate
+    return [Replicate() if mesh.size(i) == 1 else p
+            for i, p in enumerate(placements_)]
+
+
+def from_global(t, mesh, placements_):
+    """``t`` (the global tensor) as a DTensor on ``mesh``: rank 0's local
+    shard cut from ``t`` by ``placements_`` (no data moves; a meta ``t``
+    gives a meta shard; a mesh dimension of one rank replicates)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    placements_ = _on_ranks(placements_, mesh)
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, mesh, placements_)
+    local = t
+    for d, (n, o) in enumerate(zip(shape, offset)):
+        if n != t.shape[d]:
+            local = local.narrow(d, o, n)
+    return DTensor.from_local(local.contiguous(), mesh, placements_,
+                              run_check=False, shape=t.shape,
+                              stride=t.contiguous().stride())
+
+
+def distribute_tree(specs, tensors, mesh):
+    """specs: a tree of logical tuples; tensors: the matching tree ->
+    the tree of DTensors on ``mesh`` (a named ``DeviceMesh``), each leaf
+    placed by ``placements(logical_to_spec(spec, mesh, shape))``."""
+    return map_tree(lambda sp, t: from_global(t, mesh, placements(
+        logical_to_spec(sp, mesh, shape=t.shape), mesh)), specs, tensors,
+        is_leaf=is_spec)
+
+
+def batch_like(t, x):
+    """``t`` (a tensor the model makes, whose first dimension is the
+    batch) laid out as ``x``'s batch: sharded on dimension 0 over the
+    mesh dimensions that shard ``x``'s dimension 0, replicated over the
+    others.  ``t`` itself when ``x`` is not a DTensor."""
+    if not is_dtensor(x):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Shard(0) if p == Shard(0) else Replicate() for p in x.placements]
+    return from_global(t, x.device_mesh, pl)
+
+
+def on_local_shards(fn, in_placements, out_placements, *args):
+    """``fn`` on the local shards of ``args``, JAX's ``shard_map``: each
+    DTensor argument is redistributed to its entry of ``in_placements``
+    (None: as it lies), ``fn`` runs on the local tensors, and each
+    output is a DTensor with its entry of ``out_placements`` on the
+    arguments' mesh.  Differentiable.  Plain arguments pass through, and
+    with no DTensor argument ``fn(*args)`` is returned as it is."""
+    from torch.distributed.tensor import DTensor
+    dts = [a for a in args if is_dtensor(a)]
+    if not dts:
+        return fn(*args)
+    mesh = dts[0].device_mesh
+    local = []
+    for a, pl in zip(args, in_placements):
+        if is_dtensor(a):
+            # contiguous first: DTensor's redistribution may lay the
+            # local shard out otherwise than its strides say
+            a = a.contiguous()
+            if pl is not None and tuple(pl) != tuple(a.placements):
+                a = a.redistribute(mesh, pl)
+            a = a.to_local()
+        local.append(a)
+    outs = fn(*local)
+    single = not isinstance(outs, tuple)
+    outs = (outs,) if single else outs
+    wrapped = tuple(o if pl is None else DTensor.from_local(
+        o, mesh, pl, run_check=False)
+        for o, pl in zip(outs, out_placements))
+    return wrapped[0] if single else wrapped
+
+
+def on_row_shards(fn, batch_dims, channel_dims, *args, n_out: int = 1):
+    """``fn``, which treats each batch row and each channel apart (a
+    scan), on local shards (``on_local_shards``).  ``batch_dims`` and
+    ``channel_dims`` give each argument's batch and channel dimension
+    (None: it has none).  On each mesh dimension the first argument's
+    placement decides: sharded on its batch (channel) dimension, every
+    argument is sharded on its own batch (channel) dimension and
+    replicated where it has none; otherwise all are replicated.  Each of
+    the ``n_out`` outputs (a tuple when more than one) is laid out as
+    the first argument then is."""
+    if not is_dtensor(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate, Shard
+    ins = [[] for _ in args]
+    for p in args[0].placements:
+        dims = None
+        if isinstance(p, Shard) and p.dim == batch_dims[0]:
+            dims = batch_dims
+        elif isinstance(p, Shard) and p.dim == channel_dims[0]:
+            dims = channel_dims
+        for pl, d in zip(ins, dims or [None] * len(args)):
+            pl.append(Replicate() if d is None else Shard(d))
+    return on_local_shards(fn, ins, [ins[0]] * n_out, *args)
+
+
+class _GroupSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, backward_sums: bool):
+        ctx.group, ctx.backward_sums = group, backward_sums
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_reduce(g, ctx.group) if ctx.backward_sums else g,
+                None, None)
+
+
+def _all_reduce(t, group):
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+
+def group_sum(t, group, backward_sums: bool = False):
+    """The sum of the local tensor ``t`` over the ranks of ``group``: one
+    functional all-reduce (which ``roofline/comm_cost`` counts).  Its
+    gradient is the incoming gradient (each rank's part of a replicated
+    sum), or with ``backward_sums`` the gradient's sum over the group
+    too (the transpose JAX gives ``psum`` in an unchecked
+    ``shard_map``)."""
+    return _GroupSum.apply(t, group, backward_sums)
+
+
+def embedding_lookup(table, tokens):
+    """``F.embedding(tokens, table)``.  On a DTensor table sharded on its
+    vocabulary over one mesh dimension, each rank looks its tokens up in
+    its own rows (zeros for the others) and the rows are summed over
+    that dimension's group (``group_sum``): the output is laid out as
+    ``tokens``, with the embedding dimension whole."""
+    if not is_dtensor(table) or not any(p.is_shard(0)
+                                        for p in table.placements):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = table.device_mesh
+    dims = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    if len(dims) > 1 or any(p.is_shard(1) for p in table.placements):
+        raise NotImplementedError("embedding_lookup: a table sharded on "
+                                  "more than its vocabulary over one axis")
+    shape, offset = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    lo, n = offset[0], shape[0]
+    group = mesh.get_group(dims[0])
+    rows = tokens.placements if is_dtensor(tokens) else \
+        [Replicate()] * mesh.ndim
+
+    def local(t, tok):
+        out_of = (tok < lo) | (tok >= lo + n)
+        e = F.embedding(torch.where(out_of, 0, tok - lo), t)
+        return group_sum(torch.where(out_of[..., None], 0, e), group)
+
+    return on_local_shards(local, [None, rows], [list(rows)], table,
+                           tokens)
+
+
+_registered = []
+
+
+def register_strategies() -> None:
+    """Give DTensor a sharding strategy for the operations the models
+    run that it has none for (once per process): ``aten.searchsorted``
+    on the rows of a batch, sharded on any leading dimension of both
+    inputs (the output follows ``self``), or everything replicated."""
+    if _registered:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.searchsorted.Tensor)
+    def _searchsorted(sorted_sequence, values, *args, **kwargs):
+        out = [([Replicate()], [Replicate(), Replicate()])]
+        if sorted_sequence.ndim == values.ndim:
+            out += [([Shard(d)], [Shard(d), Shard(d)])
+                    for d in range(values.ndim - 1)]
+        return out
+
+    _registered.append(True)

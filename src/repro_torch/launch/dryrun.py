@@ -1,12 +1,23 @@
-"""Dry run of every (arch x shape x mesh) cell on the meta device (the
-port's counterpart of the JAX package's ``launch/dryrun.py``).
+"""Dry run of every (arch x shape x mesh) cell (the port's counterpart of
+the JAX package's ``launch/dryrun.py``).
 
 JAX lowers and compiles each cell for a 256- or 512-chip mesh of fake
-devices and reads XLA's memory and cost analyses.  The port has no SPMD
-compiler: it builds each cell's parameters, state and inputs as meta
-tensors (shapes and dtypes, no values; params and state in bfloat16, as
-JAX's ``abstract_params`` / ``abstract_state`` take them) and runs the
-cell's function on them under ``roofline/op_cost``:
+devices and reads XLA's memory and cost analyses and the collectives of
+the partitioned program.  The port runs each cell twice on the CPU,
+with no data:
+
+1. on meta tensors of the global shapes (shapes and dtypes, no values;
+   params and state in bfloat16, as JAX's ``abstract_params`` /
+   ``abstract_state`` take them) under ``roofline/op_cost``: the global
+   count, ``op_cost``;
+2. on DTensors, as rank 0 of the production mesh: a ``DeviceMesh`` of
+   256 or 512 ranks over a fake process group (``launch/mesh.
+   production_device_mesh``), every leaf laid out by its logical spec
+   (``sharding.distribute_tree``), each local shard a meta tensor, under
+   ``roofline/comm_cost``: what rank 0 computes and what it
+   communicates.
+
+The cell's function:
 
 * ``train``: ``trainer.make_train_step`` (the loss's forward and
   backward, then AdamW; int8 error feedback on the multi-pod mesh, as
@@ -20,24 +31,36 @@ Each record holds JAX's keys where the port has a counterpart:
   of the arguments, each leaf's bytes over the product of the mesh axes
   of its spec (``distributed/sharding``; size-aware specs never pad, so
   this is exact);
+* ``collectives``: rank 0's collectives by JAX's kind names, each kind's
+  result bytes summed and ``count_<kind>`` (``comm_cost``; DTensor's
+  choice of collective, not XLA's: ROADMAP Queue 3 lists where they
+  part);
+* ``hlo_cost``: ``flops`` and ``bytes`` of rank 0's local operations
+  (sharded work once, replicated work in full), ``collectives`` and
+  their sum ``collective_bytes``, which ``roofline/analysis`` turns into
+  the collective term; beside it ``collective_axes``, the bytes by the
+  mesh axes each collective's group spans ("pod", "data+model", ...);
 * ``cost_analysis.flops`` and ``bytes accessed``: op_cost's global count
   over the devices, an even split (``cost_analysis.split``), with the
   global counts beside it in ``op_cost``;
-* ``devices``, ``mesh``, ``ok``, ``lower_s`` (the seconds the run took).
+* ``devices``, ``mesh``, ``ok``, ``lower_s`` (the seconds the cell took,
+  ``spmd_s`` of them the DTensor run).
 
-``output_size_in_bytes``, ``temp_size_in_bytes``, ``alias_size_in_bytes``,
-``collectives`` and ``hlo_cost`` are null, each with its ``why``: they
-come from a compiled SPMD program, which the port does not build.
+``output_size_in_bytes``, ``temp_size_in_bytes`` and
+``alias_size_in_bytes`` are null, with their ``why``: XLA's buffer
+assignment gives them, and the port has none yet.
 
 The plain RWKV-6 and Mamba scans loop over the sequence; they are counted
 from runs of 2, 3 and 4 steps (``op_cost.StepCounted``), which the record
-says under ``counted_apart``.  Each cell runs under its mesh
-(``sharding.use_mesh``) and rules, as JAX lowers it under its mesh.
-``--variant opt`` applies JAX's opt changes: banded attention for
-mixed-window archs, the decode rules (batch over data x model, cache
-head dim replicated), and the expert-parallel MoE dispatch
-(``moe.moe_ffn_ep_local``), which on the meta device runs one rank's
-part of each MoE layer and counts it once per (data shard, model rank).
+says under ``counted_apart``; on DTensors they run on each rank's local
+shards.  Each cell runs under its mesh (``sharding.use_mesh``) and
+rules, as JAX lowers it under its mesh.  ``--variant opt`` applies JAX's
+opt changes: banded attention for mixed-window archs, the decode rules
+(batch over data x model, cache head dim replicated), and the
+expert-parallel MoE dispatch (``moe.moe_ffn_ep_local``), which on the
+meta device runs one rank's part of each MoE layer and counts it once
+per (data shard, model rank), and on DTensors runs rank 0's part and
+sums the parts over "model" (JAX's ``shard_map`` and ``psum``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
@@ -59,19 +82,23 @@ from repro_torch.configs.base import (SHAPES, all_archs, applicable_shapes,
                                       get_arch)
 from repro_torch.core.tree import is_spec, leaves, map_tree
 from repro_torch.distributed.sharding import (DEFAULT_RULES, axis_rules,
+                                              distribute_tree,
                                               logical_to_spec,
+                                              register_strategies,
                                               shard_count, use_mesh)
 from repro_torch.kernels.mamba_scan import ops as mamba_ops
 from repro_torch.kernels.rwkv6_scan import ops as rwkv_ops
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import (make_production_mesh,
+                                    production_device_mesh)
 from repro_torch.launch.specs import decode_specs, input_specs
 from repro_torch.models import model as M
+from repro_torch.roofline.comm_cost import collective_axes, spmd_cost
 from repro_torch.roofline.op_cost import OpCost, StepCounted
 from repro_torch.train import trainer as T
 
 META = torch.device("meta")
-NO_SPMD = ("no counterpart: XLA reports it for a compiled SPMD program, "
-           "and the port builds none")
+NO_BUFFERS = ("no counterpart yet: XLA's buffer assignment of the "
+              "compiled program gives it (the peak live bytes of rank 0)")
 COUNTED_APART = ("rwkv6_ref and mamba_ref (the plain scans) counted from "
                  "runs of 2, 3 and 4 steps, extrapolated to the sequence "
                  "length (roofline/op_cost.StepCounted)")
@@ -130,6 +157,13 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     ``args``)}."""
     shape = SHAPES[shape_name]
     cfg, rules = cell_rules(get_arch(arch), shape, variant)
+    return build_cell(cfg, shape, rules, multi_pod, micro_batches)
+
+
+def build_cell(cfg, shape, rules: dict, multi_pod: bool,
+               micro_batches: int = 1) -> dict:
+    """``lower_cell``'s cell of a model config and a ``ShapeConfig``
+    (the tests build cells of reduced configs with it)."""
     bf16 = torch.bfloat16
     pspecs = M.param_specs(cfg)
     if shape.kind == "train":
@@ -163,6 +197,24 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
             "args": args, "specs": specs, "fn": fn}
 
 
+def spmd_count(cell: dict, mesh) -> dict:
+    """``cell`` run on DTensors on ``mesh`` (a named ``DeviceMesh``), as
+    the mesh's rank 0: each leaf of its arguments laid out by its spec
+    on a meta local shard, the plain tensors the model makes replicated
+    (``implicit_replication``).  Returns ``comm_cost.spmd_cost``'s count
+    of rank 0's work and collectives, with ``collective_axes``: their
+    bytes by the mesh axes each group spans."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    register_strategies()
+    with axis_rules(cell["rules"]):
+        args = distribute_tree(cell["specs"], cell["args"], mesh)
+        with use_mesh(mesh), implicit_replication(), \
+                _scans_by_trip_count():
+            cost = spmd_cost(cell["fn"], *args)[1]
+    return {**cost, "collective_axes": collective_axes(cost["by_group"],
+                                                       mesh)}
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: str,
              micro_batches: int = 1, variant: str = "baseline") -> dict:
     t0 = time.time()
@@ -178,10 +230,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: str,
             with _scans_by_trip_count(), OpCost() as mode:
                 cell["fn"](*cell["args"])
         cost = mode.result()
+        t1 = time.time()
+        with production_device_mesh(multi_pod=multi_pod) as dmesh:
+            spmd = spmd_count(cell, dmesh)
         rec["memory_analysis"] = {
             "argument_size_in_bytes": arg_bytes,
             "output_size_in_bytes": None, "temp_size_in_bytes": None,
-            "alias_size_in_bytes": None, "why_null": NO_SPMD}
+            "alias_size_in_bytes": None, "why_null": NO_BUFFERS}
         rec["cost_analysis"] = {
             "flops": cost["flops"] / n_dev,
             "bytes accessed": cost["bytes"] / n_dev,
@@ -189,15 +244,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: str,
         rec["op_cost"] = {"flops": cost["flops"], "bytes": cost["bytes"],
                           "by_op": cost["by_op"]}
         rec["counted_apart"] = COUNTED_APART
-        rec["collectives"] = None
-        rec["hlo_cost"] = None
-        rec["why_null"] = NO_SPMD
+        rec["collectives"] = spmd["collectives"]
+        rec["hlo_cost"] = {k: spmd[k] for k in (
+            "flops", "bytes", "collectives", "collective_bytes")}
+        rec["collective_axes"] = spmd["collective_axes"]
         rec["lower_s"] = round(time.time() - t0, 2)
+        rec["spmd_s"] = round(time.time() - t1, 2)
         rec["devices"] = n_dev
         rec["ok"] = True
         print(f"[OK]   {arch:24s} {shape_name:12s} {rec['mesh']:8s} "
               f"run={rec['lower_s']:7.1f}s "
-              f"flops={rec['cost_analysis']['flops']:.3e}/dev "
+              f"flops={rec['hlo_cost']['flops']:.3e}/dev "
+              f"coll={rec['hlo_cost']['collective_bytes']:.3e} B/dev "
               f"args={arg_bytes / 2**30:.2f} GiB/dev")
     except Exception as e:                  # a failed cell is a record
         rec["ok"] = False

@@ -3,12 +3,17 @@ package's ``launch/mesh.py``).
 
 ``make_production_mesh`` describes the 16 x 16 (256-chip) and 2 x 16 x 16
 (512-chip) meshes by their axis names and sizes only: ``distributed/
-sharding.logical_to_spec`` needs nothing more, and a ``DeviceMesh`` of 256
-or 512 ranks cannot be built on one card.  ``make_local_mesh`` builds a
-real ``DeviceMesh`` over the ranks of the process group that is up.
+sharding.logical_to_spec`` needs nothing more.  ``production_device_mesh``
+(``fake_device_mesh``) brings the same mesh up as a CPU ``DeviceMesh``
+whose process group is PyTorch's fake one, with this process as rank 0
+of 256 or 512: DTensor lays out and redistributes rank 0's shards on
+it, and a collective moves nothing (the dry run's SPMD half).
+``make_local_mesh`` builds a real ``DeviceMesh`` over the ranks of the
+process group that is up.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -34,6 +39,31 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     if multi_pod:
         return MeshShape(("pod", "data", "model"), (2, 16, 16))
     return MeshShape(("data", "model"), (16, 16))
+
+
+@contextlib.contextmanager
+def fake_device_mesh(shape: MeshShape):
+    """``shape`` as a ``DeviceMesh`` on the CPU, over a fake process group
+    of ``shape.size`` ranks in which this process is rank 0, the axes
+    named as ``shape``'s; the group is destroyed when the block ends.
+    Raises if a process group is up already."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_device_mesh brings up a process group of "
+                           "its own, and one is up already")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=shape.size)
+    try:
+        yield init_device_mesh("cpu", tuple(shape.axis_sizes),
+                               mesh_dim_names=tuple(shape.axis_names))
+    finally:
+        dist.destroy_process_group()
+
+
+def production_device_mesh(*, multi_pod: bool = False):
+    """``make_production_mesh``'s mesh as a ``fake_device_mesh``: a
+    context whose value is the ``DeviceMesh``."""
+    return fake_device_mesh(make_production_mesh(multi_pod=multi_pod))
 
 
 def make_local_mesh(data: int = 1, model: int = 1):

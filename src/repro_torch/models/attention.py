@@ -10,14 +10,27 @@ windowed or global, causal or not.  Cross-attention is plain PyTorch, as
 the JAX package computes it outside any kernel, and so is
 ``banded_attention``, the S x 2w band that the banded forward gives the
 local layers (``model._forward_banded``).
+
+On DTensors (the dry run's SPMD half) the query heads may be sharded
+over more ranks than there are KV heads (64 query heads over a 16-way
+"model" axis, 4 KV heads replicated): grouping the query heads by KV head
+would split the sharded head dimension, which DTensor cannot, so there
+the keys and values are repeated to the query heads first
+(``_kv_at_query_heads``), each rank keeping the heads it holds.  Plain
+tensors take the grouped layout.  ``write_rows`` writes a decode token
+into the cache, on DTensors into each rank's own shard.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (constrain, group_sum,
+                                              is_dtensor, on_local_shards,
+                                              on_row_shards)
 from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.models.common import ParamInit, apply_m_rope, apply_rope
 
@@ -53,6 +66,28 @@ def _out(o, wo):
     """einsum("bhsk,hkd->bsd", o, wo) as one matmul."""
     b, h, s, hd = o.shape
     return o.transpose(1, 2).reshape(b, s, h * hd) @ wo.reshape(h * hd, -1)
+
+
+def _kv_at_query_heads(q, k, v):
+    """(k, v) as the GQA layout of ``q`` [B, Hq, ...] can take them: as
+    they are, unless ``q`` is a DTensor whose head dimension is sharded
+    over a number of ranks that does not divide the KV heads; then
+    repeated to Hq heads ([B, Hkv, ...] -> [B, Hq, ...], each KV head
+    once per query head of its group)."""
+    hq, hkv = q.shape[1], k.shape[1]
+    if not is_dtensor(q) or hq == hkv:
+        return k, v
+    mesh = q.device_mesh
+    ranks = 1
+    for i, p in enumerate(q.placements):
+        if p.is_shard(1):
+            ranks *= mesh.size(i)
+    if hkv % ranks == 0:
+        return k, v
+    rep = lambda t: t[:, :, None].expand(
+        t.shape[0], hkv, hq // hkv, *t.shape[2:]).reshape(
+        t.shape[0], hq, *t.shape[2:])
+    return rep(k), rep(v)
 
 
 def _qkv(params, cfg: ModelConfig, x, positions):
@@ -106,9 +141,18 @@ def banded_attention(params, cfg: ModelConfig, x, positions, window: int):
     S - 1 in every row): the mask reads row offsets, not ``positions``,
     which only rotate q and k."""
     q, k, v = _qkv(params, cfg, x, positions)
+    k, v = _kv_at_query_heads(q, k, v)
+    o = on_row_shards(functools.partial(_band, int(window)), (0, 0, 0),
+                      (1, 1, 1), q, k, v)
+    o = constrain(o, ("batch", "heads", "seq", "head_dim"))
+    return _out(o, params["wo"])
+
+
+def _band(w: int, q, k, v):
+    """``banded_attention``'s scores and softmax: q [B, Hq, S, hd], k/v
+    [B, Hkv, S, hd] -> [B, Hq, S, hd] in q's dtype."""
     b, hq, s, hd = q.shape
     hkv = k.shape[1]
-    w = int(window)
     pad = (-s) % w
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
@@ -122,21 +166,26 @@ def banded_attention(params, cfg: ModelConfig, x, positions, window: int):
         return torch.cat([prev, t], dim=3)
 
     sc = qb @ band(k)[:, :, None].transpose(-1, -2)   # [b,hkv,g,nb,w,2w]
-    r = torch.arange(w, device=x.device)[:, None]
-    j = torch.arange(2 * w, device=x.device)[None, :]
+    r = torch.arange(w, device=q.device)[:, None]
+    j = torch.arange(2 * w, device=q.device)[None, :]
     rel = j - (r + w)                                  # kpos - qpos
     mask = (rel <= 0) & (rel > -w)
-    first = torch.arange(nb, device=x.device)[:, None, None] == 0
+    first = torch.arange(nb, device=q.device)[:, None, None] == 0
     mask = mask[None] & ~(first & (j[None] < w))       # block 0: no prev
     sc = torch.where(mask, sc, -1e30)
     o = torch.softmax(sc, dim=-1) @ band(v)[:, :, None]
-    o = o.reshape(b, hq, s + pad, hd)[:, :, :s].to(x.dtype)
-    o = constrain(o, ("batch", "heads", "seq", "head_dim"))
-    return _out(o, params["wo"])
+    return o.reshape(b, hq, s + pad, hd)[:, :, :s].to(q.dtype)
 
 
 def _masked_attention(q, k, v, positions, window: int, causal: bool):
-    """Reference attention (fills with -1e30, then softmax)."""
+    """Reference attention (fills with -1e30, then softmax); on DTensors
+    each rank's own rows and heads (``sharding.on_row_shards``)."""
+    k, v = _kv_at_query_heads(q, k, v)
+    return on_row_shards(functools.partial(_masked_local, window, causal),
+                         (0, 0, 0, 0), (1, 1, 1, None), q, k, v, positions)
+
+
+def _masked_local(window: int, causal: bool, q, k, v, positions):
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -144,12 +193,12 @@ def _masked_attention(q, k, v, positions, window: int, causal: bool):
     s = qf @ k.to(torch.float32)[:, :, None].transpose(-1, -2)
     qpos = positions[:, None, None, :, None]
     kpos = positions[:, None, None, None, :]
-    mask = torch.ones((b, 1, 1, sq, sq), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
+    mask = kpos <= qpos if causal else None
     if window >= 0:
-        mask &= kpos > qpos - window
-    s = torch.where(mask, s, -1e30)
+        inside = kpos > qpos - window
+        mask = inside if mask is None else mask & inside
+    if mask is not None:
+        s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = p @ v.to(torch.float32)[:, :, None]
     return o.reshape(b, hq, sq, d).to(q.dtype)
@@ -162,17 +211,53 @@ def decode_attention_dense(params, cfg: ModelConfig, x, cache_k, cache_v,
     x: [B, 1, D]; cache_k/v: [B, Hkv, S_max, hd]; pos: [B] current
     length.  Writes the new token's K/V into the caches IN PLACE and
     returns (out [B, 1, D], cache_k, cache_v)."""
-    b = x.shape[0]
-    hkv, s_max, hd = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
     q, k, v = _qkv(params, cfg, x, pos[:, None])
-    bidx = torch.arange(b, device=x.device)
-    pl = pos.to(torch.int64)
-    cache_k[bidx, :, pl] = k[:, :, 0].to(cache_k.dtype)
-    cache_v[bidx, :, pl] = v[:, :, 0].to(cache_v.dtype)
-    g = cfg.n_heads // hkv
-    qf = (q.to(torch.float32) * (hd ** -0.5)).reshape(b, hkv, g, hd)
+    write_rows(cache_k, pos, k[:, :, 0].to(cache_k.dtype))
+    write_rows(cache_v, pos, v[:, :, 0].to(cache_v.dtype))
+    o = _decode_attend(q, cache_k, cache_v, pos, window)
+    # the cache's head dim may be sharded; the output projection takes
+    # the heads' layout (on DTensors; a plain tensor passes)
+    o = constrain(o, ("batch", "heads", "seq", "head_dim"))
+    return _out(o, params["wo"]), cache_k, cache_v
+
+
+def _decode_attend(q, cache_k, cache_v, pos, window: int):
+    """The decode token's attention over the caches: q [B, Hq, 1, hd]
+    -> [B, Hq, 1, hd].  On DTensors each rank attends with its own
+    shards (``sharding.on_local_shards``): q and ``pos`` laid out as the
+    cache's rows, heads and head dim, and where the head dim is sharded
+    the scores are summed over its ranks (``sharding.group_sum``)."""
+    hd = cache_k.shape[3]
+    if not is_dtensor(cache_k):
+        return _decode_local((), hd, window, q, cache_k, cache_v, pos)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache_k.device_mesh
+    q_pl, pos_pl, groups = [], [], []
+    for i, p in enumerate(cache_k.placements):
+        q_pl.append(Shard(p.dim) if p.is_shard() and p.dim in (0, 1, 3)
+                    else Replicate())
+        pos_pl.append(Shard(0) if p.is_shard(0) else Replicate())
+        if p.is_shard(3):
+            groups.append(mesh.get_group(i))
+        elif p.is_shard(2):
+            raise ValueError("decode attention: the cache's sequence is "
+                             "sharded")
+    return on_local_shards(
+        functools.partial(_decode_local, tuple(groups), hd, window),
+        [q_pl, None, None, pos_pl], [q_pl], q, cache_k, cache_v, pos)
+
+
+def _decode_local(groups, hd: int, window: int, q, cache_k, cache_v, pos):
+    """``_decode_attend`` on local tensors; ``hd`` is the whole head dim
+    (the scale), the scores summed over the process ``groups``."""
+    b, hq = q.shape[0], q.shape[1]
+    hkv, s_max, hd_l = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
+    g = hq // hkv
+    qf = (q.to(torch.float32) * (hd ** -0.5)).reshape(b, hkv, g, hd_l)
     s = qf @ cache_k.to(torch.float32).transpose(-1, -2)   # [B,Hkv,G,S]
-    kpos = torch.arange(s_max, device=x.device)[None, None, None, :]
+    for grp in groups:
+        s = group_sum(s, grp)
+    kpos = torch.arange(s_max, device=q.device)[None, None, None, :]
     pp = pos[:, None, None, None]
     ok = kpos <= pp
     if window >= 0:
@@ -180,8 +265,33 @@ def decode_attention_dense(params, cfg: ModelConfig, x, cache_k, cache_v,
     s = torch.where(ok, s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = p @ cache_v.to(torch.float32)                       # [B,Hkv,G,hd]
-    o = o.reshape(b, cfg.n_heads, 1, hd).to(x.dtype)
-    return _out(o, params["wo"]), cache_k, cache_v
+    return o.reshape(b, hq, 1, hd_l).to(q.dtype)
+
+
+def write_rows(cache, pos, val) -> None:
+    """``cache[b, :, pos[b]] = val[b]`` for every row b, IN PLACE: cache
+    [B, H, S_max, hd], pos [B], val [B, H, hd].  On DTensors each rank
+    writes its own shard (``sharding.on_local_shards``), ``pos`` and
+    ``val`` laid out as the cache's rows and columns first."""
+    if not is_dtensor(cache):
+        cache[torch.arange(cache.shape[0], device=cache.device), :,
+              pos.to(torch.int64)] = val
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    if any(p.is_shard(2) for p in cache.placements):
+        raise ValueError("write_rows: the cache's sequence is sharded")
+    row = [Shard(0) if p.is_shard(0) else Replicate()
+           for p in cache.placements]
+    col = [Shard(p.dim - 1) if p.is_shard() and p.dim > 0 else r
+           for p, r in zip(cache.placements, row)]
+
+    def local(c, p, v):
+        c[torch.arange(c.shape[0], device=c.device), :,
+          p.to(torch.int64)] = v
+        return c
+
+    on_local_shards(local, [cache.placements, row, col],
+                    [cache.placements], cache, pos, val)
 
 
 def init_cross_attention(pi: ParamInit, cfg: ModelConfig) -> dict:
@@ -191,6 +301,11 @@ def init_cross_attention(pi: ParamInit, cfg: ModelConfig) -> dict:
 def _softmax_attend(q, k, v):
     """Unmasked GQA softmax attention in float32: q [B, Hq, Sq, hd], k/v
     [B, Hkv, Sk, hd] -> [B, Hq, Sq, hd] in q's dtype."""
+    k, v = _kv_at_query_heads(q, k, v)
+    return on_row_shards(_softmax_local, (0, 0, 0), (1, 1, 1), q, k, v)
+
+
+def _softmax_local(q, k, v):
     b, hq, sq, hd = q.shape
     hkv = k.shape[1]
     qf = (q.to(torch.float32) * hd ** -0.5).reshape(b, hkv, hq // hkv, sq,

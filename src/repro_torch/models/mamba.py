@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, on_row_shards
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.models.common import ParamInit
 
@@ -73,9 +74,12 @@ def mamba_layer(params, cfg: ModelConfig, x, *, backend: str = "reference",
     xi, z = xz[..., :di], xz[..., di:]
     xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"],
                                 None if state is None else state[1])
-    xi = F.silu(xi)
+    # the layout anchors of a DTensor run (a plain tensor passes): the
+    # scan's channels sharded as in_proj's, its (dt, B, C) projection
+    # reduced whole
+    xi = constrain(F.silu(xi), ("batch", "seq", "mlp"))
 
-    proj = xi @ p["x_proj"]
+    proj = constrain(xi @ p["x_proj"], ("batch", "seq", None))
     dt = softplus(proj[..., :dt_rank] @ p["dt_proj_w"]
                   + p["dt_proj_b"][None, None])
     bmat = proj[..., dt_rank:dt_rank + n]
@@ -83,7 +87,9 @@ def mamba_layer(params, cfg: ModelConfig, x, *, backend: str = "reference",
     a = -torch.exp(p["a_log"].to(f32))
 
     if state is None:
-        y = selective_scan(xi, dt, a, bmat, cmat, p["d"], backend=backend)
+        y = on_row_shards(lambda *t: selective_scan(*t, backend=backend),
+                          (0, 0, None, 0, 0, None), (2, 2, 0, None, None, 0),
+                          xi, dt, a, bmat, cmat, p["d"])
         new_h = None
     else:
         h = state[0]

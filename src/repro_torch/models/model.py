@@ -39,7 +39,10 @@ in JAX.
 
 The sharding constraints (``distributed/sharding.constrain``) sit where
 the JAX package puts them, on the embeddings and the logits; they change
-nothing but a DTensor on the ambient mesh.
+nothing but a DTensor on the ambient mesh.  On DTensors (the dry run's
+SPMD half) the activations stay DTensors from the embedding lookup to
+the logits, and the positions the forward makes are laid out as the
+batch (``sharding.batch_like``).
 
 ``param_specs`` and ``cache_specs`` give the logical-axis specs of the
 parameters and the decode cache without a tensor: the specs JAX's
@@ -55,7 +58,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.tree import leaves
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (batch_like, constrain,
+                                              embedding_lookup)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -201,7 +205,7 @@ def _block_apply(cfg: ModelConfig, p, x, positions, window: int,
     else:                             # rwkv time mix
         mix, _ = rwkv_mod.time_mix(p["mixer"]["time_mix"], cfg, h,
                                    backend=backend)
-    x = x + mix
+    x = _residual(x, mix)
     h = norm(p["ln2"], x, cfg.norm_kind, cfg.norm_eps)
     extras = {}
     if kind == "rwkv":
@@ -210,11 +214,27 @@ def _block_apply(cfg: ModelConfig, p, x, positions, window: int,
         out, extras = moe_mod.moe_ffn(p["ffn"], cfg, h)
     else:
         out = ffn(p["ffn"], h, cfg.ffn_kind, cfg.act)
-    return x + out, extras
+    return _residual(x, out), extras
+
+
+def _residual(x, y):
+    """x + y, held to the embeddings' layout (a DTensor's only)."""
+    return constrain(x + y, ("batch", "seq", "embed"))
 
 
 def _arange_positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def _positions_of(x) -> torch.Tensor:
+    """Positions 0 .. S - 1 of every row of x [B, S, ...], laid out as
+    x's batch."""
+    return batch_like(_arange_positions(*x.shape[:2], x.device), x)
+
+
+def _embed(params, tokens):
+    """The embedding rows of ``tokens`` (``sharding.embedding_lookup``)."""
+    return embedding_lookup(params["embed"], tokens.to(torch.int64))
 
 
 def _lm_logits(cfg: ModelConfig, params, x):
@@ -258,11 +278,11 @@ def forward(cfg: ModelConfig, params, batch: dict, *,
     if "embeds" in batch:
         x = batch["embeds"].to(params["embed"].dtype)
     else:
-        x = params["embed"][batch["tokens"].to(torch.int64)]
+        x = _embed(params, batch["tokens"])
     x = constrain(x, ("batch", "seq", "embed"))
     positions = batch.get("positions")
     if positions is None:
-        positions = _arange_positions(*x.shape[:2], x.device)
+        positions = _positions_of(x)
     if (cfg.family != "hybrid" and cfg.banded_local
             and len(set(cfg.window_pattern)) > 1):
         return _forward_banded(cfg, params, x, positions, backend, remat)
@@ -318,22 +338,22 @@ def _enc_block(cfg: ModelConfig, blk, x, pos, backend: str):
     """One whisper encoder block: non-causal self-attention (B7 on
     backend "cuda"), then the MLP."""
     h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    x = x + attn_mod.attention(blk["mixer"], cfg, h, pos, -1, causal=False,
-                               backend=backend)
+    x = _residual(x, attn_mod.attention(blk["mixer"], cfg, h, pos, -1,
+                                        causal=False, backend=backend))
     h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + ffn(blk["ffn"], h, cfg.ffn_kind, cfg.act)
+    return _residual(x, ffn(blk["ffn"], h, cfg.ffn_kind, cfg.act))
 
 
 def _dec_block(cfg: ModelConfig, blk, x, pos, enc, backend: str):
     """One whisper decoder block: causal self-attention (B7 on backend
     "cuda"), cross-attention to the encoder's output ``enc``, the MLP."""
     h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    x = x + attn_mod.attention(blk["mixer"], cfg, h, pos, -1,
-                               backend=backend)
+    x = _residual(x, attn_mod.attention(blk["mixer"], cfg, h, pos, -1,
+                                        backend=backend))
     h = norm(blk["ln_cross"], x, cfg.norm_kind, cfg.norm_eps)
-    x = x + attn_mod.cross_attention(blk["cross"], cfg, h, enc)
+    x = _residual(x, attn_mod.cross_attention(blk["cross"], cfg, h, enc))
     h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + ffn(blk["ffn"], h, cfg.ffn_kind, cfg.act)
+    return _residual(x, ffn(blk["ffn"], h, cfg.ffn_kind, cfg.act))
 
 
 def _encode(cfg: ModelConfig, params, enc_embeds, backend: str,
@@ -342,7 +362,7 @@ def _encode(cfg: ModelConfig, params, enc_embeds, backend: str,
     [B, S_enc, D]: every encoder block (each recomputed in the backward
     pass with ``remat``), then ``enc_final_norm``."""
     x = enc_embeds.to(params["embed"].dtype)
-    pos = _arange_positions(*x.shape[:2], x.device)
+    pos = _positions_of(x)
     for blk in params["enc_blocks"]:
         x = _remat(remat, _enc_block, cfg, blk, x, pos, backend)
     return norm(params["enc_final_norm"], x, cfg.norm_kind, cfg.norm_eps)
@@ -355,8 +375,8 @@ def _forward_encdec(cfg: ModelConfig, params, batch, backend: str,
     every block (each recomputed in the backward pass with ``remat``).
     aux is zero."""
     enc = _encode(cfg, params, batch["enc_embeds"], backend, remat)
-    x = params["embed"][batch["tokens"].to(torch.int64)]
-    pos = _arange_positions(*x.shape[:2], x.device)
+    x = constrain(_embed(params, batch["tokens"]), ("batch", "seq", "embed"))
+    pos = _positions_of(x)
     for blk in params["blocks"]:
         x = _remat(remat, _dec_block, cfg, blk, x, pos, enc, backend)
     x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
@@ -372,10 +392,12 @@ def loss_fn(cfg: ModelConfig, params, batch, *, backend: str = "reference",
     labels = batch["labels"].to(torch.int64)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    # the gold logit kept [B, S, 1] until it meets logz: on vocab-sharded
+    # DTensors its reduction over the vocab shards happens there
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])
     mask = (labels >= 0).to(torch.float32)
-    nll = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
-                                                        min=1.0)
+    nll = torch.sum((logz[..., None] - gold)[..., 0] * mask) \
+        / torch.clamp(torch.sum(mask), min=1.0)
     return nll + 0.01 * aux
 
 
@@ -470,38 +492,40 @@ def _ffn_or_moe(cfg: ModelConfig, p, h, use_moe: bool):
 
 def _decode_dense(cfg: ModelConfig, params, cache, tokens, pos):
     with torch.no_grad():
-        x = params["embed"][tokens.to(torch.int64)][:, None]   # [B, 1, D]
+        x = constrain(_embed(params, tokens)[:, None],          # [B, 1, D]
+                          ("batch", "seq", "embed"))
         for i, (blk, (_, use_moe, window)) in enumerate(
                 zip(params["blocks"], layer_plan(cfg))):
             h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
             mix, _, _ = attn_mod.decode_attention_dense(
                 blk["mixer"], cfg, h, cache["k"][i], cache["v"][i], pos,
                 window)
-            x = x + mix
+            x = _residual(x, mix)
             if cfg.family == "audio":    # against the encoder's K/V
                 h = norm(blk["ln_cross"], x, cfg.norm_kind, cfg.norm_eps)
-                x = x + attn_mod.cross_attention_cached(
+                x = _residual(x, attn_mod.cross_attention_cached(
                     blk["cross"], cfg, h, cache["cross_k"][i],
-                    cache["cross_v"][i])
+                    cache["cross_v"][i]))
             h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-            x = x + _ffn_or_moe(cfg, blk, h, use_moe)
+            x = _residual(x, _ffn_or_moe(cfg, blk, h, use_moe))
         x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
         return _lm_logits(cfg, params, x)[:, 0], cache
 
 
 def _decode_rwkv(cfg: ModelConfig, params, cache, tokens):
     with torch.no_grad():
-        x = params["embed"][tokens.to(torch.int64)][:, None]   # [B, 1, D]
+        x = constrain(_embed(params, tokens)[:, None],          # [B, 1, D]
+                          ("batch", "seq", "embed"))
         for i, blk in enumerate(params["blocks"]):
             h = norm(blk["ln1"], x, cfg.norm_kind, cfg.norm_eps)
             mix, (wkv_s, ltm) = rwkv_mod.time_mix(
                 blk["mixer"]["time_mix"], cfg, h, state=cache["wkv"][i],
                 last_x=cache["last_tm"][i])
-            x = x + mix
+            x = _residual(x, mix)
             h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
             out, lcm = rwkv_mod.channel_mix(blk["mixer"]["channel_mix"], h,
                                             last_x=cache["last_cm"][i])
-            x = x + out
+            x = _residual(x, out)
             cache["wkv"][i].copy_(wkv_s)
             cache["last_tm"][i].copy_(ltm)
             cache["last_cm"][i].copy_(lcm)
@@ -515,7 +539,8 @@ def _decode_hybrid(cfg: ModelConfig, params, cache, tokens, pos):
     layers' state and conv carry, numbered within the superblock)."""
     period = len(cfg.pattern)
     with torch.no_grad():
-        x = params["embed"][tokens.to(torch.int64)][:, None]   # [B, 1, D]
+        x = constrain(_embed(params, tokens)[:, None],          # [B, 1, D]
+                          ("batch", "seq", "embed"))
         for l, (blk, (kind, use_moe, _)) in enumerate(
                 zip(params["blocks"], layer_plan(cfg))):
             sb, i = divmod(l, period)
@@ -531,8 +556,8 @@ def _decode_hybrid(cfg: ModelConfig, params, cache, tokens, pos):
                                                  cache["conv"][sb, slot]))
                 cache["ssm_h"][sb, slot].copy_(h2)
                 cache["conv"][sb, slot].copy_(c2)
-            x = x + mix
+            x = _residual(x, mix)
             h = norm(blk["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-            x = x + _ffn_or_moe(cfg, blk, h, use_moe)
+            x = _residual(x, _ffn_or_moe(cfg, blk, h, use_moe))
         x = norm(params["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
         return _lm_logits(cfg, params, x)[:, 0], cache

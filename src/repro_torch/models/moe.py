@@ -67,10 +67,12 @@ def moe_ffn_global(params, cfg: ModelConfig, x):
     rowwise dispatch of a single row of B * S tokens, whose capacity,
     sort, drops and aux loss are the global ones."""
     b, s, d = x.shape
-    out, extras = _dispatch_rows(params, cfg, x.reshape(1, b * s, d), None)
+    top_p, top_e, aux = _route(params, cfg, x)                # [B, S, k]
+    row = lambda t: t.reshape(1, b * s, -1)
+    out, extras = _dispatch_rows(params, cfg, row(x), None,
+                                 (row(top_p), row(top_e), aux))
     return out.reshape(b, s, d), {
-        **extras, "experts": extras["experts"].reshape(b, s, -1),
-        "kept": extras["kept"].reshape(b, s, -1)}
+        **extras, "experts": top_e, "kept": extras["kept"].reshape(b, s, -1)}
 
 
 def moe_ffn_rowwise(params, cfg: ModelConfig, x):
@@ -90,6 +92,8 @@ def _route(params, cfg: ModelConfig, x):
     k = cfg.top_k
     dev = x.device
     logits = (x @ params["router"]).to(torch.float32)         # [..., E]
+    if x.dim() == 3:      # a DTensor's tokens stay laid out as x's
+        logits = constrain(logits, ("batch", "seq", None))
     if e != cfg.n_experts:
         pad = torch.arange(e, device=dev) >= cfg.n_experts
         logits = torch.where(pad, -1e30, logits)
@@ -106,19 +110,61 @@ def _route(params, cfg: ModelConfig, x):
     return top_p, top_e, torch.sum(me * ce) * e
 
 
-def _dispatch_rows(params, cfg: ModelConfig, x, row_axis):
+def _dispatch_rows(params, cfg: ModelConfig, x, row_axis, routed=None):
     """The rowwise dispatch; ``row_axis`` is the logical axis of the
     buffers' row dimension in their sharding constraints ("batch"; None
     for the global dispatch's single row, whose buffers JAX constrains
-    as [E, C, d])."""
+    as [E, C, d]); ``routed`` is ``_route``'s result for ``x`` where the
+    caller has it.
+
+    On DTensors the packing (sort, ranks, buffer) runs on each rank's
+    rows, gathered whole where a row is sharded (the global dispatch's
+    one row of all tokens), the experts run as DTensor einsums on the
+    expert-sharded buffer, and the combine reads each rank's own
+    experts' slots and leaves a partial sum over the ranks that shard
+    the experts (``sharding.on_local_shards``)."""
     b, s, d = x.shape
     e = cfg.n_experts_padded or cfg.n_experts
     k = cfg.top_k
-    dev = x.device
-    top_p, top_e, aux = _route(params, cfg, x)                # [B, S, k]
+    top_p, top_e, aux = routed or _route(params, cfg, x)      # [B, S, k]
 
     # ---- sort-based dispatch
     c = int(cfg.capacity_factor * s * k / e) + 1
+    rows, dropped_pl = _row_layouts(x)
+    buf, keep_u, slot_u, dropped = sharding.on_local_shards(
+        functools.partial(_pack, e, c, k), [rows, rows],
+        [rows, rows, rows, dropped_pl], x, top_e)
+    axes = (row_axis, "expert", "capacity", "embed")
+    buf = constrain(buf, axes)
+    h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"])) \
+        * torch.einsum("becd,edf->becf", buf, params["w_up"])
+    out_flat = constrain(torch.einsum("becf,efd->becd", h,
+                                      params["w_down"]), axes) \
+        .reshape(b, e * c, d)
+    out = _combine_on_shards(out_flat, keep_u, slot_u, top_p)
+    return out, {"aux_loss": aux, "dropped": dropped, "experts": top_e,
+                 "kept": keep_u.reshape(b, s, k)}
+
+
+def _row_layouts(x):
+    """(the placements of ``x``'s rows: sharded on dimension 0 where x
+    is, whole elsewhere; a count summed over those rows: partial over
+    the ranks that shard them), or (None, None) for a plain tensor."""
+    if not sharding.is_dtensor(x):
+        return None, None
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements]
+    return rows, [Partial() if p.is_shard() else p for p in rows]
+
+
+def _pack(e: int, c: int, k: int, x, top_e):
+    """The sort-based packing of rows ``x`` [b, s, d] by their top-k
+    experts ``top_e`` [b, s, k]: (buf [b, e, c, d], each choice's kept
+    flag and slot in (token, choice) order [b, s k], the dropped count).
+    Kept slots are distinct; every dropped choice lands in a spare row
+    past the buffer, which is cut off."""
+    b, s, d = x.shape
+    dev = x.device
     fe = top_e.reshape(b, s * k)
     order = torch.sort(fe, dim=1, stable=True).indices
     se = torch.gather(fe, 1, order)
@@ -129,32 +175,56 @@ def _dispatch_rows(params, cfg: ModelConfig, x, row_axis):
     dropped = torch.sum(1.0 - keep.to(torch.float32))
     slot = torch.where(keep, se * c + rank, e * c)
     rows = torch.arange(b, device=dev)[:, None].expand(b, s * k)
-    # kept slots are distinct; every dropped choice lands in the spare row
     buf = torch.zeros((b, e * c + 1, d), dtype=x.dtype, device=dev)
     buf[rows, slot] = torch.gather(x, 1, st_[..., None].expand(b, s * k, d))
     buf = buf[:, :e * c].reshape(b, e, c, d)
-    axes = (row_axis, "expert", "capacity", "embed")
-    buf = constrain(buf, axes)
-    h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"])) \
-        * torch.einsum("becd,edf->becf", buf, params["w_up"])
-    out_flat = constrain(torch.einsum("becf,efd->becd", h,
-                                      params["w_down"]), axes) \
-        .reshape(b, e * c, d)
-
-    # ---- combine, in (token, choice) order
     inv = torch.empty_like(order).scatter_(
         1, order, torch.arange(s * k, device=dev)[None].expand(b, s * k))
-    keep_u = torch.gather(keep, 1, inv)
-    slot_u = torch.gather(slot, 1, inv)
-    g = out_flat[rows, torch.where(keep_u, slot_u, 0)]
-    g = torch.where(keep_u[..., None], g, 0) \
-        * top_p.reshape(b, s * k)[..., None].to(x.dtype)
+    return (buf, torch.gather(keep, 1, inv), torch.gather(slot, 1, inv),
+            dropped)
+
+
+def _combine_on_shards(out_flat, keep_u, slot_u, top_p):
+    """``_combine`` on DTensors: each rank reads the slots of its own
+    experts (out_flat's dimension 1 sharded over the "model" ranks), so
+    the output [b, s, d] is a partial sum over those ranks."""
+    full = out_flat.shape[1]
+    if not sharding.is_dtensor(out_flat):
+        return _combine(0, full, out_flat, keep_u, slot_u, top_p)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    pl = out_flat.placements
+    _, offset = compute_local_shape_and_global_offset(
+        out_flat.shape, out_flat.device_mesh, pl)
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in pl]
+    out_pl = [Partial() if p.is_shard(1) else p for p in pl]
+    return sharding.on_local_shards(
+        functools.partial(_combine, offset[1], full),
+        [None, rows, rows, rows], [out_pl], out_flat, keep_u, slot_u, top_p)
+
+
+def _combine(lo: int, full: int, out_flat, keep_u, slot_u, top_p):
+    """Each token's k expert outputs from ``out_flat`` [b, n, d], the
+    buffer's slots lo .. lo + n - 1 of ``full``, weighted by ``top_p``
+    [b, s, k] and added in a fixed order (choice 0, 1, ...); a choice
+    whose slot lies elsewhere (dropped, or another rank's) adds
+    nothing.  Returns [b, s, d]."""
+    b, n, d = out_flat.shape
+    s, k = top_p.shape[1], top_p.shape[2]
+    valid, slot = keep_u, slot_u
+    if n != full:
+        valid = keep_u & (slot_u >= lo) & (slot_u < lo + n)
+        slot = slot_u - lo
+    rows = torch.arange(b, device=out_flat.device)[:, None].expand(b, s * k)
+    g = out_flat[rows, torch.where(valid, slot, 0)]
+    g = torch.where(valid[..., None], g, 0) \
+        * top_p.reshape(b, s * k)[..., None].to(out_flat.dtype)
     g = g.reshape(b, s, k, d)
     out = g[:, :, 0]
     for j in range(1, k):
         out = out + g[:, :, j]
-    return out, {"aux_loss": aux, "dropped": dropped, "experts": top_e,
-                 "kept": keep_u.reshape(b, s, k)}
+    return out
 
 
 def moe_ffn_ep_local(params, cfg: ModelConfig, x):
@@ -183,7 +253,8 @@ def moe_ffn_ep_local(params, cfg: ModelConfig, x):
       tensors, every expert's weights), and the sums run over the
       "model" group (``all_reduce``); ``aux_loss`` is this rank's own
       shard's, so ranks of different data shards hold different values,
-      as each device does under JAX's unchecked output (PERF.md);
+      as each device does under JAX's unchecked output (PERF.md); ``x``
+      a DTensor (the dry run's SPMD half): ``_ep_on_dtensors``;
     * meta tensors: one part, counted once per part
       (``roofline/op_cost.counted_times``): every part has the same
       shapes, so the count is exact.
@@ -252,7 +323,10 @@ def _no_drops(x):
 
 def _ep_on_mesh(params, cfg: ModelConfig, x, mesh, e_loc: int):
     """``moe_ffn_ep_local`` on a named ``DeviceMesh``: this rank's part
-    of its batch shard ``x``, summed over the "model" group."""
+    of its batch shard ``x``, summed over the "model" group.  ``x`` a
+    DTensor: ``_ep_on_dtensors``."""
+    if sharding.is_dtensor(x):
+        return _ep_on_dtensors(params, cfg, x, mesh, e_loc)
     import torch.distributed as dist
     from torch.distributed.nn.functional import all_reduce
     group = mesh.get_group("model")
@@ -263,6 +337,41 @@ def _ep_on_mesh(params, cfg: ModelConfig, x, mesh, e_loc: int):
         out = all_reduce(out, group=group)
         aux = all_reduce(aux, group=group) / ep
     return out, {"aux_loss": aux, "dropped": _no_drops(x), "experts": top_e}
+
+
+def _ep_on_dtensors(params, cfg: ModelConfig, x, mesh, e_loc: int):
+    """JAX's ``shard_map`` of the expert-parallel part over DTensors
+    (``sharding.on_local_shards``): ``x`` sharded on its batch over the
+    ("pod", "data") axes that divide it, the router whole, the experts
+    sharded over "model"; each rank runs its part (``_ep_experts``) and
+    the parts are summed over the "model" group, ``aux_loss`` averaged
+    (an all-reduce each, forward and backward: JAX's psum and pmean).
+    The output and ``experts`` are laid out as ``x``'s batch,
+    ``aux_loss`` replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    b = x.shape[0]
+    names = mesh.mesh_dim_names
+    rows = [Shard(0) if n in ("pod", "data") and b % mesh.size(i) == 0
+            else Replicate() for i, n in enumerate(names)]
+    experts = [Shard(0) if n == "model" else Replicate() for n in names]
+    whole = [Replicate()] * len(names)
+    group = mesh.get_group("model")
+    ep = mesh.size(names.index("model"))
+    lo = mesh.get_local_rank("model") * e_loc
+
+    def part(xs, router, w_gate, w_up, w_down):
+        out, aux, top_e = _ep_experts(cfg, lo, xs, router, w_gate, w_up,
+                                      w_down)
+        return (sharding.group_sum(out, group, backward_sums=True),
+                sharding.group_sum(aux, group, backward_sums=True) / ep,
+                top_e)
+
+    out, aux, top_e = sharding.on_local_shards(
+        part, [rows, whole, experts, experts, experts], [rows, whole, rows],
+        x, params["router"], params["w_gate"], params["w_up"],
+        params["w_down"])
+    return out, {"aux_loss": aux, "dropped": _no_drops(x),
+                 "experts": top_e}
 
 
 def _expert_slice(params, lo: int, e_loc: int) -> list:

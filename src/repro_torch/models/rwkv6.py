@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import on_row_shards
 from repro_torch.kernels.rwkv6_scan.ops import wkv
 from repro_torch.models.common import ParamInit, group_norm
 
@@ -88,10 +89,14 @@ def time_mix(params, cfg: ModelConfig, x, *, backend: str = "reference",
     w = heads(torch.exp(-torch.exp(logw.to(torch.float32))))
 
     if state is None:
-        o = wkv(r, k, v, w, p["u"], backend=backend)      # [B, H, S, hd]
+        o = on_row_shards(lambda *a: wkv(*a, backend=backend),  # [B,H,S,hd]
+                          (0, 0, 0, 0, None), (1, 1, 1, 1, 0),
+                          r, k, v, w, p["u"])
         new_state = None
     else:
-        o, new_state = _wkv_step(r, k, v, w, p["u"], state)
+        o, new_state = on_row_shards(_wkv_step, (0, 0, 0, 0, None, 0),
+                                     (1, 1, 1, 1, 0, 1), r, k, v, w, p["u"],
+                                     state, n_out=2)
     o = o.transpose(1, 2).reshape(b, s, d)
     o = group_norm(o, p["ln_w"], p["ln_b"], groups=h, eps=64e-5)
     out = (o * g) @ p["wo"]

@@ -10,10 +10,14 @@ limit (the card the port runs on reports power limit 700.00 W in
   HBM3 bandwidth      3.35 TB/s per card
   NVLink bandwidth    900 GB/s per card (all links together)
 
-Terms (per device; the dry run splits its global count evenly):
+Terms (per device: rank 0 of the mesh, from the record's ``hlo_cost``,
+which the dry run counts on DTensors; a record without it falls back to
+``cost_analysis``'s even split of the global count):
   compute_s    = flops / PEAK_FLOPS (bf16: the dry run's dtype)
-  memory_s     = bytes / HBM_BW
-  collective_s = collective_bytes / LINK_BW (no record carries them yet)
+  memory_s     = bytes / HBM_BW (op_cost's unfused bytes: an upper bound)
+  collective_s = collective_bytes / LINK_BW (rank 0's collectives, each
+                 kind's result bytes, JAX's convention; every axis at the
+                 NVLink rate, "pod" included)
 MODEL_FLOPS is the analytic useful-work count (6*N*D train / 2*N*D
 inference, MoE uses active params) -- the MODEL_FLOPS / (flops *
 n_devices) ratio exposes remat and redundant compute.

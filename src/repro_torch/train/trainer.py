@@ -6,12 +6,14 @@ with ``loss``, ``grad_norm`` and ``lr``.  Gradients come from
 ``torch.autograd.grad`` through ``model.loss_fn`` (each block recomputed
 in the backward pass with ``remat``, as JAX's ``jax.checkpoint``), on
 backend "reference" only: no kernel of the port has a backward, as no
-Pallas kernel of the JAX package has a VJP.  Micro-batches accumulate as
-JAX's scan does: the sum of the per-micro-batch gradients over n, and
-the loss likewise.  The step updates the state's tensors IN PLACE (it
-consumes its input state, as the engine steps do); ``clone_state``
-keeps a copy.  ``state_specs`` gives the state's logical specs (the
-moments and the residual ZeRO-1 sharded).
+Pallas kernel of the JAX package has a VJP.  On DTensors (the dry run's
+SPMD half) each gradient is reduced to its parameter's layout, and the
+optimizer's ZeRO-1 moments take their shards of it.  Micro-batches
+accumulate as JAX's scan does: the sum of the per-micro-batch gradients
+over n, and the loss likewise.  The step updates the state's tensors IN
+PLACE (it consumes its input state, as the engine steps do);
+``clone_state`` keeps a copy.  ``state_specs`` gives the state's logical
+specs (the moments and the residual ZeRO-1 sharded).
 """
 from __future__ import annotations
 
@@ -133,7 +135,18 @@ def _value_and_grad(mcfg: ModelConfig, tcfg: TrainConfig, params, batch):
         grads = iter(torch.autograd.grad(loss, list(leaves(live)),
                                          allow_unused=True,
                                          materialize_grads=True))
-    return loss.detach(), map_tree(lambda _: next(grads), params)
+    return loss.detach(), map_tree(lambda p: _laid_out_as(next(grads), p),
+                                   params)
+
+
+def _laid_out_as(g, p):
+    """A gradient laid out as its parameter: on DTensors the data-parallel
+    reduction (a gradient partial over the batch's ranks is all-reduced),
+    as JAX's gradients take their parameters' shardings; a plain
+    gradient as it is."""
+    if type(g).__name__ != "DTensor" or g.placements == p.placements:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig):

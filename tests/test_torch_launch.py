@@ -380,8 +380,12 @@ def _jax_arg_bytes(arch, kind, multi):
                                         ("decode", True)])
 def test_dryrun_argument_bytes_equal_jax(kind, multi, tmp_path):
     """gemma3-1b at published width: the dry run's per-device argument
-    bytes equal the sum over JAX's shapes and specs; the fields with no
-    counterpart are null with a reason; FLOPs split evenly."""
+    bytes equal the sum over JAX's shapes and specs; the buffer fields
+    with no counterpart are null with a reason; ``collectives`` and
+    ``hlo_cost`` are filled from the DTensor run, under JAX's keys, with
+    ``collective_bytes`` the sum of the kinds' bytes and rank 0's FLOPs
+    at least the even split's; FLOPs split evenly in
+    ``cost_analysis``."""
     sname = {"train": "train_4k", "prefill": "prefill_32k",
              "decode": "decode_32k"}[kind]
     rec = dryrun.run_cell("gemma3-1b", sname, multi, str(tmp_path))
@@ -390,7 +394,18 @@ def test_dryrun_argument_bytes_equal_jax(kind, multi, tmp_path):
     assert ma["argument_size_in_bytes"] == _jax_arg_bytes("gemma3-1b", kind,
                                                           multi)
     assert ma["temp_size_in_bytes"] is None and ma["why_null"]
-    assert rec["hlo_cost"] is None and rec["collectives"] is None
+    coll = rec["collectives"]
+    kinds = {"all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+             "collective-permute"}
+    assert isinstance(coll, dict) and coll
+    assert set(coll) <= kinds | {"count_" + k for k in kinds}
+    assert all(coll["count_" + k] > 0 for k in coll if k in kinds)
+    hc = rec["hlo_cost"]
+    assert set(hc) == {"flops", "bytes", "collectives", "collective_bytes"}
+    assert hc["collectives"] == coll
+    assert hc["collective_bytes"] == sum(v for k, v in coll.items()
+                                         if k in kinds) > 0
+    assert hc["flops"] >= rec["cost_analysis"]["flops"] > 0
     assert rec["devices"] == (512 if multi else 256)
     assert rec["cost_analysis"]["flops"] == rec["op_cost"]["flops"] / \
         rec["devices"]
@@ -452,6 +467,7 @@ def test_dryrun_opt_moe_cells_need_ep_local(arch, shape, tmp_path):
     1%."""
     rec = dryrun.run_cell(arch, shape, False, str(tmp_path), variant="opt")
     assert rec["ok"], rec.get("error")
+    assert rec["hlo_cost"]["flops"] >= rec["cost_analysis"]["flops"]
     cfg = base.get_arch(arch)
     assert cfg.moe
     if (arch, shape) != ("qwen3-moe-235b-a22b", "prefill_32k"):

@@ -133,7 +133,9 @@ def test_hardware_constants_are_the_h100_datasheet():
 def test_from_record_is_jax_with_the_h100_constants(tmp_path):
     """A dry-run record of the port (nulls where it has no counterpart)
     through both ``from_record``s; JAX's is fed the record with the null
-    fields left out, which the port's treats alike."""
+    fields left out, which the port's treats alike.  The record's
+    collectives (the DTensor run's) give the collective term at the
+    NVLink rate."""
     rec = dryrun.run_cell("gemma3-1b", "decode_32k", False, str(tmp_path))
     assert rec["ok"] and rec["memory_analysis"]["temp_size_in_bytes"] is None
     drop = lambda d: {k: v for k, v in d.items() if v is not None}
@@ -148,12 +150,15 @@ def test_from_record_is_jax_with_the_h100_constants(tmp_path):
         assert getattr(got, f) == getattr(want, f), f
     assert got.compute_s == want.hlo_flops / 989e12
     assert got.memory_s == want.hlo_bytes / 3.35e12
-    assert got.collective_s == 0.0
+    assert got.coll_bytes == rec["hlo_cost"]["collective_bytes"] > 0
+    assert got.collective_s == got.coll_bytes / 900e9
     assert got.dominant == max((got.compute_s, "compute"),
-                               (got.memory_s, "memory"))[1]
+                               (got.memory_s, "memory"),
+                               (got.collective_s, "collective"))[1]
     assert got.mem_gb == rec["memory_analysis"][
         "argument_size_in_bytes"] / 1e9
     assert analysis.load_all(str(tmp_path)) == [got]
     assert analysis.HEADER == janalysis.HEADER
     assert got.row().count("|") == want.row().count("|")
-    np.testing.assert_equal(got.bound_s, max(got.compute_s, got.memory_s))
+    np.testing.assert_equal(got.bound_s, max(got.compute_s, got.memory_s,
+                                             got.collective_s))
