@@ -72,7 +72,8 @@ Phases, each printed as one JSON line:
   2h. vlm_serve -- the same model through ServeEngine as in serve,
                  VLM_SERVE_SHAPE: every request retires, pages demoted and
                  read back, B1-B5 launch, the legs' tokens bit-equal, B6
-                 on one layer's live pools
+                 on one layer's live pools; paged_kv.needs_compaction on
+                 the card against the fast tier's occupancy
   2i. whisper_prefill -- whisper-small at full width: the encoder-decoder
                  forward on backend "cuda" (flash_attention in the 12
                  non-causal encoder layers over 1,500 frames and the 12
@@ -188,7 +189,9 @@ Phases, each printed as one JSON line:
                  engine_init + prepare_step, backend "cuda", "cuda" with
                  the plain movers, and "reference": every lookup equal to
                  the initial table, the end states equal; steps/s,
-                 compactions, launches; embed_4096, the same at
+                 compactions, launches, embedding_store.needs_compaction
+                 on the card against the fast tier's occupancy;
+                 embed_4096, the same at
                  EMBED_DIAG_TOKENS a batch without the plain-movers leg,
                  where the "reference" leg may
                  part from the "cuda" one only at a compaction whose
@@ -199,10 +202,13 @@ Phases, each printed as one JSON line:
                  DTensors as rank 0 of the mesh, in four host processes
                  started before the kernel checks: every cell of both
                  variants ok (the opt moe cells on ep_local) with its
-                 collectives and hlo_cost; each cell's collective bytes
-                 and dominant roofline term, and JAX's three opt cells'
-                 bound against the baseline's; the banded_prefill cell's
-                 check, predicted collective bytes 0 on one rank
+                 collectives, hlo_cost and rank 0's output, temp and
+                 alias bytes; each cell's collective bytes, dominant
+                 roofline term and mem_gb (rank 0's predicted bytes),
+                 the cells above the card's memory and the largest, and
+                 JAX's three opt cells' bound against the baseline's; the
+                 banded_prefill cell's check, predicted collective bytes
+                 0 on one rank
 Then the kernels line, the nvidia-smi line, and the final ok line.  The
 sizes are the module constants below; PERF.md ("Scale used") says why.
 
@@ -2245,6 +2251,24 @@ def _explain_divergence(log, per_step, digests) -> dict:
     return out
 
 
+def _watermark_check(needs_compaction, state, cfg) -> dict:
+    """A store's ``needs_compaction`` (``paged_kv`` or
+    ``embedding_store``, both ``compaction.needs_compaction``) on its
+    state on the card: a 0-d bool on the card, equal to the fast tier's
+    occupancy against the high watermark in float32 on the host."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tiers
+    got = needs_compaction(state, cfg)
+    occ = float(tiers.fast_occupancy(state.tier))
+    want = bool(np.float32(occ) >= np.float32(cfg.tier().high_watermark))
+    if got.device.type != "cuda" or got.shape != () or \
+            got.dtype != torch.bool or bool(got) != want:
+        raise AssertionError(f"needs_compaction gave {got} at occupancy "
+                             f"{occ}")
+    return {"value": bool(got), "fast_occupancy": occ}
+
+
 def embed_phase(steps: int = EMBED_STEPS, tokens: int = EMBED_TOKENS,
                 vocab: int = EMBED_VOCAB, dim: int = EMBED_DIM,
                 fast_rows: int = EMBED_FAST_ROWS, device=None,
@@ -2326,7 +2350,10 @@ def embed_phase(steps: int = EMBED_STEPS, tokens: int = EMBED_TOKENS,
             "host_reads_per_step": engine.HOST_READS.n / steps,
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2**30,
-            "launches": dict(kernels.LAUNCHES)}
+            "launches": dict(kernels.LAUNCHES),
+            "needs_compaction": _watermark_check(
+                es.needs_compaction, est.payload._replace(tier=est.tier),
+                cfg)}
         ends[leg], per_step[leg], digests[leg] = est, comps, digs
         print(f"# {out['phase']} {leg}: {w.sum() / 1e3:.1f}s, "
               f"{int(c.compactions)} compactions", file=sys.stderr,
@@ -3959,7 +3986,7 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None,
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.core import engine
+    from repro_torch.core import engine, paged_kv
     kv_cfg = serve_kv_config(cfg)
     out = {"phase": phase, "model": cfg.name, "kv": kv_cfg._asdict(),
            "requests": shape.requests, "prompt_tokens": shape.prompt,
@@ -4022,7 +4049,9 @@ def serve_phase(params, cfg, seed: int = SERVE_SEED, device=None,
             "retired": eng.stats["retired"],
             "max_memory_allocated_gib":
                 torch.cuda.max_memory_allocated() / 2**30,
-            "launches": dict(kernels.LAUNCHES)}
+            "launches": dict(kernels.LAUNCHES),
+            "needs_compaction": _watermark_check(
+                paged_kv.needs_compaction, eng.est, eng.cfg)}
         if busy:
             out[leg]["traced"] = busy
         tokens[leg] = [list(r.out) for r in reqs]
@@ -4431,7 +4460,8 @@ def dryrun_cell_check(cfg, params, batch, forward_s: float) -> dict:
            "op_cost_s": cost_s, "model_flops": mf,
            "one_rank_collective_bytes": one_rank["collective_bytes"],
            "one_rank_collectives": one_rank["collectives"],
-           "one_rank_flops": one_rank["flops"], "spmd_s": spmd_s,
+           "one_rank_flops": one_rank["flops"],
+           "one_rank_buffers": one_rank["buffers"], "spmd_s": spmd_s,
            "forward_s": forward_s,
            "compute_s_f32": cost["flops"] / analysis.PEAK_FLOPS_F32,
            "model_compute_s_f32": mf / analysis.PEAK_FLOPS_F32,
@@ -4450,7 +4480,13 @@ def dryrun_phase(procs: list, cell: dict) -> dict:
     the cells that are ok and the failed ones by name, per variant, and
     each process's seconds.  Gates: every process exits, and every cell
     of both variants is ok (the opt variant's moe cells on the
-    expert-parallel dispatch)."""
+    expert-parallel dispatch), and every ok cell has rank 0's output,
+    temp and alias bytes.  The ``dryrun_cells`` line gives each cell's
+    ``mem_gb``, rank 0's predicted bytes (arguments + output + temp -
+    alias, from the DTensor run on the host: no byte of it is measured
+    on the card); the phase line counts the cells above the card's
+    memory and names the largest."""
+    import torch
     from repro_torch.configs.base import (all_archs, applicable_shapes,
                                           get_arch)
     recs = {v: [] for v in DRYRUN_VARIANTS}
@@ -4493,15 +4529,32 @@ def dryrun_phase(procs: list, cell: dict) -> dict:
         if unfilled:
             fails.append(f"{variant}: no collectives or hlo_cost in "
                          f"{unfilled}")
+        unsized = sorted("_".join((r["arch"], r["shape"], r["mesh"]))
+                         for r in recs[variant] if r["ok"] and any(
+                             r["memory_analysis"].get(k + "_size_in_bytes")
+                             is None for k in ("output", "temp", "alias")))
+        if unsized:
+            fails.append(f"{variant}: no output, temp or alias bytes in "
+                         f"{unsized}")
     roof = {v: {(r["arch"], r["shape"], r["mesh"]): analysis.from_record(
         r, get_arch(r["arch"]), SHAPES[r["shape"]])
         for r in recs[v] if r["ok"] and r.get("hlo_cost")}
         for v in DRYRUN_VARIANTS}
     emit({"phase": "dryrun_cells", "cells": {
         v: {"_".join(c): {"collective_bytes": rf.coll_bytes,
-                          "dominant": rf.dominant, "bound_s": rf.bound_s}
+                          "dominant": rf.dominant, "bound_s": rf.bound_s,
+                          "mem_gb": rf.mem_gb}
             for c, rf in sorted(roof[v].items())}
         for v in DRYRUN_VARIANTS}})
+    card = torch.cuda.get_device_properties(0).total_memory
+    out["mem"] = {"card_gb": card / 1e9, "predicted_on": "host"}
+    for v in DRYRUN_VARIANTS:
+        by_mem = sorted(((rf.mem_gb, "_".join(c))
+                         for c, rf in roof[v].items()), reverse=True)
+        out["mem"][v] = {
+            "above_card": sum(gb * 1e9 > card for gb, _ in by_mem),
+            "cells": len(by_mem),
+            "largest_gb": {name: gb for gb, name in by_mem[:5]}}
     out["dominant"] = {v: dict(collections.Counter(
         rf.dominant for rf in roof[v].values())) for v in DRYRUN_VARIANTS}
     out["opt_cells"] = {f"{a}_{s}": {v: roof[v][a, s, "16x16"].bound_s

@@ -758,6 +758,12 @@ def compact_boundary(state: TierState, cfg: TierConfig, boundary: int, *,
     return new_state, stats, mv
 
 
+def needs_compaction(state: TierState, cfg: TierConfig) -> torch.Tensor:
+    """The fast tier's occupancy has reached ``cfg.high_watermark`` (the
+    §4.2 trigger): a 0-d bool tensor on the state's device."""
+    return fast_occupancy(state) >= cfg.high_watermark
+
+
 def below_low_watermark(state: TierState, cfg: TierConfig
                         ) -> torch.Tensor:
     """The fast tier's occupancy is under ``cfg.low_watermark``."""

@@ -194,7 +194,7 @@ def compact(state: EmbedStoreState, cfg: EmbedStoreConfig,
 
 def needs_compaction(state: EmbedStoreState, cfg: EmbedStoreConfig
                      ) -> torch.Tensor:
-    return tiers.fast_occupancy(state.tier) >= cfg.tier().high_watermark
+    return compaction.needs_compaction(state.tier, cfg.tier())
 
 
 # ----------------------------------------------------- engine-driven store

@@ -426,4 +426,4 @@ def apply_movement(state: PagedKVState, cfg: PagedKVConfig, mv: Movement,
 
 def needs_compaction(state: PagedKVState, cfg: PagedKVConfig
                      ) -> torch.Tensor:
-    return tiers.fast_occupancy(state.tier) >= cfg.tier().high_watermark
+    return compaction.needs_compaction(state.tier, cfg.tier())

@@ -29,7 +29,9 @@ after redistributing each to the placements it needs (so every gather
 that needs is issued, and counted by ``roofline/comm_cost``).
 ``register_strategies`` gives DTensor the sharding strategies it lacks
 for operations the models run (``aten.searchsorted``, batched over its
-leading dimensions).
+leading dimensions).  ``vocab_logsumexp`` and ``vocab_gather`` are the
+loss's reduction and gold-logit gather on logits sharded on their
+vocabulary, each rank on its own columns.
 
 The model code imports this module for ``constrain``, so
 ``torch.distributed.tensor`` is imported only where a DTensor is made
@@ -363,9 +365,9 @@ class _GroupSum(torch.autograd.Function):
                 None, None)
 
 
-def _all_reduce(t, group):
+def _all_reduce(t, group, op: str = "sum"):
     from torch.distributed import _functional_collectives as funcol
-    return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+    return funcol.wait_tensor(funcol.all_reduce(t, op, group))
 
 
 def group_sum(t, group, backward_sums: bool = False):
@@ -409,6 +411,80 @@ def embedding_lookup(table, tokens):
 
     return on_local_shards(local, [None, rows], [list(rows)], table,
                            tokens)
+
+
+def _vocab_shards(logits):
+    """The mesh dimensions that shard the last (vocabulary) dimension of
+    the DTensor ``logits``, as a list of flags; None when ``logits`` is
+    no DTensor or is whole on its last dimension."""
+    last = logits.ndim - 1
+    if not is_dtensor(logits):
+        return None
+    vocab = [p.is_shard(last) for p in logits.placements]
+    return vocab if any(vocab) else None
+
+
+def vocab_logsumexp(logits):
+    """``torch.logsumexp(logits, -1)``.  On a DTensor sharded on its last
+    (vocabulary) dimension, each rank reduces its own columns: the
+    maximum and the sum of exponentials are all-reduced over the
+    vocabulary's groups, where DTensor would gather the whole vocabulary
+    to every rank.  The output is laid out as ``logits`` on the other
+    dimensions."""
+    vocab = _vocab_shards(logits)
+    if vocab is None:
+        return torch.logsumexp(logits, dim=-1)
+    from torch.distributed.tensor import Replicate
+    mesh = logits.device_mesh
+    groups = [mesh.get_group(d) for d, v in enumerate(vocab) if v]
+    rows = [Replicate() if v else p
+            for v, p in zip(vocab, logits.placements)]
+
+    def local(t):
+        m = t.detach().amax(-1, keepdim=True)
+        for group in groups:
+            m = _all_reduce(m, group, "max")
+        e = torch.exp(t - m).sum(-1, keepdim=True)
+        for group in groups:
+            e = group_sum(e, group)
+        return (torch.log(e) + m)[..., 0]
+
+    return on_local_shards(local, [None], [rows], logits)
+
+
+def vocab_gather(logits, index):
+    """``torch.gather(logits, -1, index)``.  On a DTensor ``logits``
+    sharded on its last (vocabulary) dimension, each rank gathers from
+    its own columns (zeros for the others) and the values are summed
+    over the vocabulary's groups (``group_sum``): the output is laid out
+    as ``index`` on the other mesh dimensions, and its gradient scatters
+    into each rank's own columns, where DTensor's gather would make the
+    gradient's zeros at the global shape on every rank."""
+    vocab = _vocab_shards(logits)
+    if vocab is None:
+        return torch.gather(logits, -1, index)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    rows = list(index.placements) if is_dtensor(index) else \
+        [Replicate()] * mesh.ndim
+    rows = [Replicate() if v else p for v, p in zip(vocab, rows)]
+    cols = [Shard(last) if v else p for v, p in zip(vocab, rows)]
+    shape, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, cols)
+    lo, n = offset[last], shape[last]
+    groups = [mesh.get_group(d) for d, v in enumerate(vocab) if v]
+
+    def local(t, idx):
+        out_of = (idx < lo) | (idx >= lo + n)
+        g = torch.where(out_of, 0, torch.gather(
+            t, -1, torch.where(out_of, 0, idx - lo)))
+        for group in groups:
+            g = group_sum(g, group)
+        return g
+
+    return on_local_shards(local, [cols, rows], [rows], logits, index)
 
 
 _registered = []

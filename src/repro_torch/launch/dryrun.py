@@ -43,12 +43,22 @@ Each record holds JAX's keys where the port has a counterpart:
 * ``cost_analysis.flops`` and ``bytes accessed``: op_cost's global count
   over the devices, an even split (``cost_analysis.split``), with the
   global counts beside it in ``op_cost``;
+* ``memory_analysis.output_size_in_bytes``, ``temp_size_in_bytes`` and
+  ``alias_size_in_bytes``: rank 0's buffers in the DTensor run
+  (``roofline/buffer_cost``): the bytes of its local shards of the
+  cell's results, the peak of its live local bytes less the arguments
+  and the results, and the results that are arguments updated in place
+  (the train step's state, the decode step's cache; JAX's dry run
+  donates nothing, so its alias is 0 and its output holds a second
+  state or cache).  Eager frees are not XLA's buffer reuse, so temp
+  parts from XLA's (ROADMAP D9); ``peak_unseen`` names the functions
+  whose live bytes the peak cannot see.
+  ``generated_code_size_in_bytes`` is null, with its ``why``;
 * ``devices``, ``mesh``, ``ok``, ``lower_s`` (the seconds the cell took,
   ``spmd_s`` of them the DTensor run).
 
-``output_size_in_bytes``, ``temp_size_in_bytes`` and
-``alias_size_in_bytes`` are null, with their ``why``: XLA's buffer
-assignment gives them, and the port has none yet.
+A cell's results are JAX's: the train step's (state, metrics), the
+prefill's logits, the decode step's (logits, cache).
 
 The plain RWKV-6 and Mamba scans loop over the sequence; they are counted
 from runs of 2, 3 and 4 steps (``op_cost.StepCounted``), which the record
@@ -97,8 +107,13 @@ from repro_torch.roofline.op_cost import OpCost, StepCounted
 from repro_torch.train import trainer as T
 
 META = torch.device("meta")
-NO_BUFFERS = ("no counterpart yet: XLA's buffer assignment of the "
-              "compiled program gives it (the peak live bytes of rank 0)")
+NO_CODE = ("no counterpart: XLA's size of the compiled program's code; "
+           "the port runs eager operations and compiles nothing a cell")
+BUFFERS_FROM = ("rank 0's local storages in the DTensor run "
+                "(roofline/buffer_cost): eager frees, not XLA's buffer "
+                "reuse (ROADMAP D9)")
+PEAK_UNSEEN = ("run 2-4 steps (op_cost.StepCounted): their live bytes at "
+               "the full sequence are not in the peak")
 COUNTED_APART = ("rwkv6_ref and mamba_ref (the plain scans) counted from "
                  "runs of 2, 3 and 4 steps, extrapolated to the sequence "
                  "length (roofline/op_cost.StepCounted)")
@@ -173,8 +188,7 @@ def build_cell(cfg, shape, rules: dict, multi_pod: bool,
         batch = input_specs(cfg, shape)
         args = (state, batch)
         specs = (T.state_specs(pspecs, tcfg), batch_specs_tree(cfg, shape))
-        step = T.make_train_step(cfg, tcfg)
-        fn = lambda st, b: step(st, b)[1]["loss"]
+        fn = T.make_train_step(cfg, tcfg)
     elif shape.kind == "prefill":
         params = M.init_params(cfg, None, bf16, META)
         batch = input_specs(cfg, shape)
@@ -191,7 +205,7 @@ def build_cell(cfg, shape, rules: dict, multi_pod: bool,
         d = decode_specs(cfg, shape)
         args = (params, cache, d["tokens"], d["pos"])
         specs = (pspecs, M.cache_specs(cfg), ("batch",), ("batch",))
-        fn = lambda p, c, t, q: M.decode_step(cfg, p, c, t, q)[0]
+        fn = lambda p, c, t, q: M.decode_step(cfg, p, c, t, q)
     return {"cfg": cfg, "rules": rules,
             "mesh": make_production_mesh(multi_pod=multi_pod),
             "args": args, "specs": specs, "fn": fn}
@@ -202,8 +216,8 @@ def spmd_count(cell: dict, mesh) -> dict:
     the mesh's rank 0: each leaf of its arguments laid out by its spec
     on a meta local shard, the plain tensors the model makes replicated
     (``implicit_replication``).  Returns ``comm_cost.spmd_cost``'s count
-    of rank 0's work and collectives, with ``collective_axes``: their
-    bytes by the mesh axes each group spans."""
+    of rank 0's work, collectives and buffers, with ``collective_axes``:
+    the collectives' bytes by the mesh axes each group spans."""
     from torch.distributed.tensor.experimental import implicit_replication
     register_strategies()
     with axis_rules(cell["rules"]):
@@ -233,10 +247,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: str,
         t1 = time.time()
         with production_device_mesh(multi_pod=multi_pod) as dmesh:
             spmd = spmd_count(cell, dmesh)
+        buf = spmd["buffers"]
         rec["memory_analysis"] = {
             "argument_size_in_bytes": arg_bytes,
-            "output_size_in_bytes": None, "temp_size_in_bytes": None,
-            "alias_size_in_bytes": None, "why_null": NO_BUFFERS}
+            "output_size_in_bytes": buf["output"],
+            "temp_size_in_bytes": buf["temp"],
+            "generated_code_size_in_bytes": None,
+            "alias_size_in_bytes": buf["alias"],
+            "why_null": NO_CODE, "buffers_from": BUFFERS_FROM,
+            "peak_unseen": {f: PEAK_UNSEEN for f in buf["unseen"]}}
         rec["cost_analysis"] = {
             "flops": cost["flops"] / n_dev,
             "bytes accessed": cost["bytes"] / n_dev,
@@ -256,7 +275,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, outdir: str,
               f"run={rec['lower_s']:7.1f}s "
               f"flops={rec['hlo_cost']['flops']:.3e}/dev "
               f"coll={rec['hlo_cost']['collective_bytes']:.3e} B/dev "
-              f"args={arg_bytes / 2**30:.2f} GiB/dev")
+              f"args={arg_bytes / 2**30:.2f} GiB/dev "
+              f"peak={buf['peak'] / 2**30:.2f} GiB/dev")
     except Exception as e:                  # a failed cell is a record
         rec["ok"] = False
         rec["error"] = f"{type(e).__name__}: {e}"

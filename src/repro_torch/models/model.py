@@ -59,7 +59,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.core.tree import leaves
 from repro_torch.distributed.sharding import (batch_like, constrain,
-                                              embedding_lookup)
+                                              embedding_lookup, vocab_gather,
+                                              vocab_logsumexp)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
@@ -391,10 +392,10 @@ def loss_fn(cfg: ModelConfig, params, batch, *, backend: str = "reference",
     logits, aux = forward(cfg, params, batch, backend=backend, remat=remat)
     labels = batch["labels"].to(torch.int64)
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    # the gold logit kept [B, S, 1] until it meets logz: on vocab-sharded
-    # DTensors its reduction over the vocab shards happens there
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])
+    # on vocab-sharded DTensors each rank reduces and gathers its own
+    # columns (the gold logit [B, S, 1]), and the gradients stay there
+    logz = vocab_logsumexp(logits)
+    gold = vocab_gather(logits, labels.clamp(min=0)[..., None])
     mask = (labels >= 0).to(torch.float32)
     nll = torch.sum((logz[..., None] - gold)[..., 0] * mask) \
         / torch.clamp(torch.sum(mask), min=1.0)

@@ -27,14 +27,18 @@ watches what rank 0 runs:
   one ``all-to-all`` of the chunk's bytes, and nothing of the stand-in.
 
 Counts scale with ``op_cost.counted_times`` and ``StepCounted``, as
-FLOPs do.  ``counting`` installs the two hooks into DTensor for the
-duration of a block; ``spmd_cost`` runs a function under both.
+FLOPs do.  Beside them ``SpmdCost`` follows rank 0's live local bytes
+(``buffer_cost.LiveBytes``: what each counted operation allocates, and
+its peak), from which ``spmd_cost`` gives XLA's buffer sizes of the
+function's results.  ``counting`` installs the two hooks into DTensor
+for the duration of a block; ``spmd_cost`` runs a function under both.
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
 
+from repro_torch.roofline.buffer_cost import LiveBytes, nbytes
 from repro_torch.roofline.op_cost import OpCost, _active_cost
 
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
@@ -63,12 +67,14 @@ def _results(out) -> list:
 class SpmdCost(OpCost):
     """``OpCost`` of one rank's local operations, with its collectives:
     ``collectives`` {kind: result bytes, "count_" + kind: ops}, and
-    ``by_group`` {process group name: result bytes}."""
+    ``by_group`` {process group name: result bytes}, and ``buffers``,
+    rank 0's live local bytes."""
 
     def __init__(self):
         super().__init__()
         self.collectives: dict = {}
         self.by_group: dict = {}
+        self.buffers = LiveBytes()
         from torch.distributed.tensor import DTensor
         self._dtensor = DTensor
 
@@ -79,6 +85,8 @@ class SpmdCost(OpCost):
         if name in _NOT_COUNTED:
             return func(*args, **(kwargs or {}))
         out = super().__torch_dispatch__(func, types, args, kwargs)
+        if self.scale:
+            self.buffers.allocated((*args, *(kwargs or {}).values()), out)
         kind = _KIND.get(name)
         if kind is not None:
             group = [a for a in args if isinstance(a, str)]
@@ -185,6 +193,9 @@ def counting():
         mode.add_collective("all-to-all", out,
                             mesh.get_group(mesh_dim).group_name)
         if mode.scale:
+            # the stand-in's chunk is a view of its gathered storage; the
+            # all-to-all allocates its result alone
+            mode.buffers.hold(out, nbytes(out))
             moved = mode.scale * (input.numel() * input.element_size()
                                   + out.numel() * out.element_size())
             mode.bytes += moved
@@ -210,7 +221,17 @@ def counting():
 def spmd_cost(fn, *args, **kwargs) -> tuple:
     """Run ``fn(*args, **kwargs)`` (on DTensors) under ``SpmdCost`` and
     ``counting``.  Returns (its result, {"flops", "bytes", "by_op",
-    "collectives", "collective_bytes"})."""
+    "collectives", "collective_bytes", "by_group", "buffers"}):
+    ``buffers`` is ``LiveBytes.sizes`` of the result, the arguments'
+    local shards held from the start, with "unseen", the functions whose
+    live bytes the peak does not see (``StepCounted``'s, run at 2-4
+    steps)."""
     with counting(), SpmdCost() as mode:
-        out = fn(*args, **kwargs)
-    return out, mode.result()
+        mode.buffers.hold_arguments((args, kwargs))
+        try:
+            out = fn(*args, **kwargs)
+            buffers = mode.buffers.sizes(out)
+        finally:
+            mode.buffers.close()
+    buffers["unseen"] = sorted(mode.step_counted)
+    return out, {**mode.result(), "buffers": buffers}

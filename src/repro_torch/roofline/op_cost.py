@@ -75,6 +75,7 @@ class OpCost(TorchDispatchMode):
         self.bytes = 0
         self.by_op: dict = {}
         self.scale = 1             # each operation counts this many times
+        self.step_counted: set = set()  # the functions StepCounted ran
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -176,6 +177,7 @@ class _StepCounted(torch.autograd.Function):
         t = args[i0].shape[sc.steps[i0]]
         ctx.sc, ctx.t = sc, t
         ctx.save_for_backward(*args)
+        mode.step_counted.add(getattr(sc.fn, "__name__", repr(sc.fn)))
         mode.extrapolate(lambda n: sc.fn(*sc._cut(args, n)), t)
         with mode.uncounted():
             out = sc.fn(*sc._cut(args, 1))

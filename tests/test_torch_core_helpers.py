@@ -1,18 +1,28 @@
-"""Five public helpers of the JAX core that nothing in either package
-calls, held bit-equal to the JAX package's on seeded inputs:
-``bloom.set_run``, ``bloom.clear_run``, ``bloom.query``,
-``compaction.below_low_watermark`` and ``mapper.expected_pinned_fraction``.
+"""Public helpers of the JAX core held bit-equal to the JAX package's on
+seeded inputs: five that nothing in either package calls
+(``bloom.set_run``, ``bloom.clear_run``, ``bloom.query``,
+``compaction.below_low_watermark`` and ``mapper.expected_pinned_fraction``)
+and ``compaction.needs_compaction``, through which ``paged_kv`` and
+``embedding_store`` ask whether their fast tier has reached its high
+watermark, on fast tiers preloaded below, at and above it.
 """
 from __future__ import annotations
+
+import functools
+import zlib
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import bloom, compaction, mapper, tiers
+from repro_torch.core import (bloom, compaction, embedding_store, mapper,
+                              paged_kv, prng, tiers)
 from torch_parity import assert_bit_equal, t
 
 N_RUNS, WORDS, N_KEYS = 8, 16, 64
+# fast tiers of 50 slots: 49 of them in use is the 0.98 high watermark
+FAST = 50
+OCCUPIED = {"below": 48, "at": 49, "above": 50}
 
 
 def _filters(rng):
@@ -98,3 +108,72 @@ def test_helper_bit_equal_to_jax(name, seed):
     want, got = _case(name, seed)
     assert want.shape == got.shape, (name, want.shape, got.shape)
     assert_bit_equal(want, got, name)
+
+
+# ------------------------------------------------------- needs_compaction
+
+def _stores():
+    """{store: (JAX's module, JAX's config, the port's config)}, each
+    store's fast tier FAST slots."""
+    from repro.core import embedding_store as jes
+    from repro.core import paged_kv as jpk
+    pk = dict(n_layers=1, kv_heads=1, head_dim=8, page_tokens=4,
+              fast_pages=FAST, slow_pages=256, max_seqs=4,
+              max_pages_per_seq=64)
+    es = dict(vocab=4096, dim=4, fast_rows=FAST)
+    return {"paged_kv": (jpk, jpk.PagedKVConfig(**pk),
+                         paged_kv.PagedKVConfig(**pk)),
+            "embedding_store": (jes, jes.EmbedStoreConfig(**es),
+                                embedding_store.EmbedStoreConfig(**es))}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_put(tcfg):
+    import jax
+    from repro.core import tiers as jtiers
+    return jax.jit(functools.partial(jtiers.put_batch, cfg=tcfg))
+
+
+@pytest.mark.parametrize("where", sorted(OCCUPIED))
+@pytest.mark.parametrize("store", ["paged_kv", "embedding_store"])
+def test_needs_compaction_bit_equal_to_jax(store, where):
+    """A store's fast tier preloaded by one put of ``OCCUPIED[where]``
+    distinct keys (drawn from the test's own generator, the batch padded
+    to FAST lanes by an invalid tail): the store's ``needs_compaction``
+    and ``compaction.needs_compaction`` give JAX's 0-d bool, bit for
+    bit, False below the watermark and True at and above it."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import compaction as jcompaction
+    from repro.core import tiers as jtiers
+    jmod, jcfg, pcfg = _stores()[store]
+    tcfg = pcfg.tier()
+    rng = np.random.default_rng(zlib.crc32(f"{store}-{where}".encode()))
+    keys = rng.choice(tcfg.key_space, FAST, replace=False).astype(np.int32)
+    valid = np.arange(FAST) < OCCUPIED[where]
+    vals = rng.random((FAST, tcfg.value_width)).astype(np.float32)
+
+    jtier = _jax_put(jcfg.tier())(jtiers.init(jcfg.tier()),
+                                  keys=jnp.asarray(keys),
+                                  vals=jnp.asarray(vals),
+                                  valid=jnp.asarray(valid))
+    ptier = tiers.put_batch(tiers.init(tcfg, "cpu"), tcfg, t(keys), t(vals),
+                            t(valid))
+    assert_bit_equal(np.asarray(jtier.keys[0]), ptier.keys[0].numpy(),
+                     "preloaded fast keys")
+    if store == "paged_kv":
+        jstate = jmod.init(jcfg)
+        pstate = paged_kv.init(pcfg, "cpu")
+    else:
+        jstate = jmod.init(jcfg, jax.random.PRNGKey(0))
+        pstate = embedding_store.init(pcfg, prng.PRNGKey(0), "cpu")
+    jstate, pstate = jstate._replace(tier=jtier), pstate._replace(tier=ptier)
+    want = np.asarray(jmod.needs_compaction(jstate, jcfg))
+    mod = paged_kv if store == "paged_kv" else embedding_store
+    got = mod.needs_compaction(pstate, pcfg)
+    assert got.shape == () and got.dtype == torch.bool
+    assert_bit_equal(want, got.numpy(), store)
+    assert_bit_equal(
+        np.asarray(jcompaction.needs_compaction(jtier, jcfg.tier())),
+        compaction.needs_compaction(ptier, tcfg).numpy(), "compaction")
+    assert bool(got) == (where != "below")

@@ -380,8 +380,13 @@ def _jax_arg_bytes(arch, kind, multi):
                                         ("decode", True)])
 def test_dryrun_argument_bytes_equal_jax(kind, multi, tmp_path):
     """gemma3-1b at published width: the dry run's per-device argument
-    bytes equal the sum over JAX's shapes and specs; the buffer fields
-    with no counterpart are null with a reason; ``collectives`` and
+    bytes equal the sum over JAX's shapes and specs; the buffer sizes
+    are rank 0's, from the DTensor run: the results' bytes, no alias in
+    prefill, and in the train and decode steps, which update their
+    state or cache in place, alias bytes of all the state but its step
+    count and the error feedback's residuals (made anew) or of the
+    whole cache; the generated code's size has no
+    counterpart and is null with a reason; ``collectives`` and
     ``hlo_cost`` are filled from the DTensor run, under JAX's keys, with
     ``collective_bytes`` the sum of the kinds' bytes and rank 0's FLOPs
     at least the even split's; FLOPs split evenly in
@@ -393,7 +398,19 @@ def test_dryrun_argument_bytes_equal_jax(kind, multi, tmp_path):
     ma = rec["memory_analysis"]
     assert ma["argument_size_in_bytes"] == _jax_arg_bytes("gemma3-1b", kind,
                                                           multi)
-    assert ma["temp_size_in_bytes"] is None and ma["why_null"]
+    assert ma["generated_code_size_in_bytes"] is None and ma["why_null"]
+    cell = dryrun.lower_cell("gemma3-1b", sname, multi)
+    with sharding.axis_rules(cell["rules"]):
+        parts = [dryrun.per_device_bytes(sp, a, cell["mesh"])
+                 for sp, a in zip(cell["specs"], cell["args"])]
+        if kind == "train":
+            ef = dryrun.per_device_bytes(cell["specs"][0].ef,
+                                         cell["args"][0].ef, cell["mesh"])
+    alias = {"train": lambda: parts[0] - 4 - ef, "prefill": lambda: 0,
+             "decode": lambda: parts[1]}[kind]()
+    assert ma["alias_size_in_bytes"] == alias
+    assert ma["output_size_in_bytes"] > ma["alias_size_in_bytes"]
+    assert ma["temp_size_in_bytes"] > 0 and ma["peak_unseen"] == {}
     coll = rec["collectives"]
     kinds = {"all-reduce", "all-gather", "reduce-scatter", "all-to-all",
              "collective-permute"}

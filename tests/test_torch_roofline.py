@@ -24,6 +24,7 @@ from repro_torch.configs.base import (SHAPES, all_archs, applicable_shapes,
                                       get_arch, reduced)
 from repro_torch.kernels.mamba_scan.ref import mamba_ref
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_ref
+from repro_torch.distributed.sharding import axis_rules, use_mesh
 from repro_torch.launch import dryrun
 from repro_torch.models import model
 from repro_torch.roofline import analysis
@@ -124,6 +125,29 @@ def test_model_flops_equal_the_jax_package():
                                           shape.seq_len, kind)
 
 
+def test_f11_whisper_decode_counts_the_encoder_self_attention():
+    """Reference fault F11: ``attention_flops`` adds the encoder's
+    self-attention, enc_layers x 4 x enc_seq^2 x h x hd x batch / 2, for
+    every kind (the JAX package's ``roofline/analysis.py:94``), though
+    ``active_params_per_token`` takes the encoder as cached in decode.
+    For whisper-small ``decode_32k`` that term is 96.4% of
+    ``model_flops``, which is 27.91x the count without it; the count
+    without it is op_cost's FLOPs of the decode cell exactly.  The
+    port's counts stay bit-equal to JAX's."""
+    cfg, shape = get_arch("whisper-small"), SHAPES["decode_32k"]
+    mf = analysis.model_flops(cfg, shape)
+    assert mf == janalysis.model_flops(j_get_arch("whisper-small"),
+                                       J_SHAPES["decode_32k"])
+    enc = (cfg.enc_layers * 4 * cfg.enc_seq ** 2 * cfg.n_heads
+           * cfg.head_dim * shape.global_batch / 2)
+    assert round(mf / (mf - enc), 2) == 27.91
+    assert round(enc / mf, 3) == 0.964
+    cell = dryrun.lower_cell("whisper-small", "decode_32k", False)
+    with axis_rules(cell["rules"]), use_mesh(cell["mesh"]):
+        _, cost = op_cost(cell["fn"], *cell["args"])
+    assert cost["flops"] == mf - enc
+
+
 def test_hardware_constants_are_the_h100_datasheet():
     assert analysis.HW == {"peak_flops": 989e12, "peak_flops_f32": 67e12,
                            "hbm_bw": 3.35e12, "link_bw": 900e9}
@@ -135,9 +159,13 @@ def test_from_record_is_jax_with_the_h100_constants(tmp_path):
     through both ``from_record``s; JAX's is fed the record with the null
     fields left out, which the port's treats alike.  The record's
     collectives (the DTensor run's) give the collective term at the
-    NVLink rate."""
+    NVLink rate, and its buffer sizes (rank 0's, from the same run) the
+    memory: arguments + output + temp - alias, rank 0's peak."""
     rec = dryrun.run_cell("gemma3-1b", "decode_32k", False, str(tmp_path))
-    assert rec["ok"] and rec["memory_analysis"]["temp_size_in_bytes"] is None
+    ma = rec["memory_analysis"]
+    assert rec["ok"] and ma["generated_code_size_in_bytes"] is None
+    assert all(ma[k + "_size_in_bytes"] > 0
+               for k in ("output", "temp", "alias"))
     drop = lambda d: {k: v for k, v in d.items() if v is not None}
     jrec = {**drop(rec), "memory_analysis": drop(rec["memory_analysis"])}
     cfg, shape = get_arch("gemma3-1b"), SHAPES["decode_32k"]
@@ -155,8 +183,11 @@ def test_from_record_is_jax_with_the_h100_constants(tmp_path):
     assert got.dominant == max((got.compute_s, "compute"),
                                (got.memory_s, "memory"),
                                (got.collective_s, "collective"))[1]
-    assert got.mem_gb == rec["memory_analysis"][
-        "argument_size_in_bytes"] / 1e9
+    assert got.mem_gb == (ma["argument_size_in_bytes"]
+                          + ma["output_size_in_bytes"]
+                          + ma["temp_size_in_bytes"]
+                          - ma["alias_size_in_bytes"]) / 1e9
+    assert ma["argument_size_in_bytes"] / 1e9 < got.mem_gb
     assert analysis.load_all(str(tmp_path)) == [got]
     assert analysis.HEADER == janalysis.HEADER
     assert got.row().count("|") == want.row().count("|")

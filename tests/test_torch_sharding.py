@@ -221,3 +221,51 @@ def test_sharding_gloo_two_ranks(jx, tmp_path):
         local, want, kinds = got[3]
         assert_trees_equal(want, local)
         assert kinds == ["Replicate()"]
+
+
+def _vocab_rank(rank: int, world: int, out: str) -> None:
+    """One rank of the gloo run of the vocabulary-sharded loss pieces:
+    logits [2, 3, 8] float32 sharded on their vocabulary over a
+    ("model",) mesh; ``vocab_logsumexp``, ``vocab_gather`` and the
+    gradient of their difference, each gathered whole."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("model",))
+    g = torch.Generator().manual_seed(26)
+    full = torch.randn(2, 3, 8, generator=g) * 4
+    idx = torch.randint(0, 8, (2, 3, 1), generator=g)
+    x = distribute_tensor(full, mesh, [Shard(2)]).requires_grad_()
+    lse = sharding.vocab_logsumexp(x)
+    gold = sharding.vocab_gather(x, distribute_tensor(idx, mesh,
+                                                      [Replicate()]))
+    (lse[..., None] - gold).sum().backward()
+    res = {"placements": (list(lse.placements), list(gold.placements),
+                          list(x.grad.placements)),
+           "values": [t.full_tensor().detach() for t in (lse, gold, x.grad)],
+           "inputs": (full, idx), "jax": jax_modules()}
+    with open(f"{out}.{rank}", "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def test_vocab_logsumexp_and_gather_gloo_two_ranks(tmp_path):
+    """Two gloo ranks, the logits' vocabulary split between them: the
+    sharded ``logsumexp`` (one max and one sum all-reduced) and gather
+    (each rank's own columns, summed) give the plain ones' values and
+    gradient (softmax less the gold one-hot) within float32 rounding
+    (rtol 1e-6, atol 1e-6); the gradient stays on the vocabulary's
+    shards."""
+    out = str(tmp_path / "rank")
+    spawn_gloo(_vocab_rank, 2, out)
+    for r in range(2):
+        with open(f"{out}.{r}", "rb") as fh:
+            got = pickle.load(fh)
+        assert got["jax"] == []
+        assert got["placements"] == ([Replicate()], [Replicate()],
+                                     [Shard(2)])
+        full, idx = got["inputs"]
+        x = full.clone().requires_grad_()
+        lse = torch.logsumexp(x, -1)
+        gold = torch.gather(x, -1, idx)
+        (lse[..., None] - gold).sum().backward()
+        for g, w in zip(got["values"], (lse, gold, x.grad)):
+            torch.testing.assert_close(g, w.detach(), rtol=1e-6, atol=1e-6)

@@ -1,12 +1,14 @@
-"""The dry run's SPMD half (``roofline/comm_cost``, ``launch/mesh.
-fake_device_mesh``, ``sharding.distribute_tree``): a function run on
-DTensors as rank 0 of a mesh over a fake process group, its local work
-and its collectives counted.
+"""The dry run's SPMD half (``roofline/comm_cost``, ``roofline/
+buffer_cost``, ``launch/mesh.fake_device_mesh``, ``sharding.
+distribute_tree``): a function run on DTensors as rank 0 of a mesh over
+a fake process group, its local work, its collectives and its buffers
+counted.
 
 * exact against a hand count: a column- then row-parallel MLP (one
   all-reduce of its output), and a Shard -> Shard redistribution, which
   the CPU mesh carries out as an all-gather and a chunk and the count
-  records as the one all-to-all NCCL would run;
+  records as the one all-to-all NCCL would run; on a 1x1 mesh, the
+  MLP's output and temp bytes and an in-place update's alias bytes;
 * a 1x1 mesh communicates nothing;
 * the multi-pod train cells of gemma3-1b and stablelm-12b at published
   width move bytes, some over a group that spans "pod" (JAX's
@@ -18,7 +20,12 @@ and its collectives counted.
   ``hlo_cost.analyze``'s parse; the reduced qwen3-moe prefill's differ,
   and the test states by how much (ROADMAP Queue 3, D-items); JAX's
   ``dryrun.collective_bytes`` counts each all-reduce twice (its pattern
-  also matches the op's name where a later line reads it).
+  also matches the op's name where a later line reads it);
+* against the buffer sizes of XLA's ``memory_analysis`` of the same
+  compiled programs and of a reduced phi4-mini train step: argument and
+  output bytes equal, alias bytes equal on the train step compiled with
+  its state donated (but for the step count, which the port makes anew),
+  and the temp bytes in a pinned ratio (ROADMAP Queue 3, D9).
 """
 from __future__ import annotations
 
@@ -64,10 +71,14 @@ JAX_SIDE = textwrap.dedent("""
     from jax.sharding import NamedSharding, PartitionSpec as P
     from repro.configs.base import get_arch, reduced
     from repro.distributed import sharding as S
-    from repro.launch.dryrun import collective_bytes
+    from repro.configs.base import ShapeConfig
+    from repro.launch.dryrun import (_sds, abstract_state, batch_specs_tree,
+                                     collective_bytes)
+    from repro.launch.specs import input_specs
     from repro.models import model as M
     from repro.models.moe import moe_ffn_ep_local
     from repro.roofline import hlo_cost
+    from repro.train import trainer as T
     jax.config.update("jax_platform_name", "cpu")
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
@@ -85,9 +96,14 @@ JAX_SIDE = textwrap.dedent("""
             mesh, S.logical_to_spec(logical, mesh, shape=shape)))
 
     def counts(lowered):
-        hlo = lowered.compile().as_text()
+        compiled = lowered.compile()
+        hlo, ma = compiled.as_text(), compiled.memory_analysis()
         return {{"hlo_cost": hlo_cost.analyze(hlo)["collectives"],
-                 "collective_bytes": collective_bytes(hlo)}}
+                 "collective_bytes": collective_bytes(hlo),
+                 "results": len(jax.tree.leaves(lowered.out_info)),
+                 "memory": {{k: int(getattr(ma, k + "_size_in_bytes"))
+                            for k in ("argument", "output", "temp",
+                                      "alias")}}}}
 
     out = {{}}
     with jax.set_mesh(mesh):
@@ -113,6 +129,17 @@ JAX_SIDE = textwrap.dedent("""
                 lambda p, t: M.forward(cfg, p, {{"tokens": t}},
                                        remat=False)[0]).lower(
                 abstract(p, specs), toks))
+            if not cfg.moe:
+                tcfg = T.TrainConfig()
+                shape = ShapeConfig("t", SEQ, B, "train")
+                st_shapes, st_specs = abstract_state(cfg, tcfg)
+                args = (_sds(st_shapes, st_specs, mesh),
+                        _sds(input_specs(cfg, shape),
+                             batch_specs_tree(cfg, shape), mesh))
+                step = T.make_train_step(cfg, tcfg)
+                out[name, "train"] = counts(jax.jit(step).lower(*args))
+                out[name, "train_donated"] = counts(jax.jit(
+                    step, donate_argnums=0).lower(*args))
             if cfg.moe:
                 ep = cfg.replace(moe_dispatch="ep_local")
                 out[name, "ep_local"] = counts(jax.jit(
@@ -150,40 +177,44 @@ def _meta(*shape, dtype=torch.float32):
 
 
 def _port(name: str, what: str) -> dict:
-    """The port's collectives of ``JAX_SIDE``'s block or prefill, on
-    DTensors on a 2 x 2 fake mesh."""
+    """``comm_cost.spmd_cost``'s count of ``JAX_SIDE``'s block, prefill,
+    expert-parallel FFN or train step, on DTensors on a 2 x 2 fake mesh,
+    the cell's arguments passed to it (the train step is the dry run's
+    cell: bfloat16 state, as JAX's ``abstract_state``)."""
     cfg = reduced(get_arch(name))
     sharding.register_strategies()
+    if what == "train":
+        cell = dryrun.build_cell(cfg, ShapeConfig("t", SEQ, BATCH, "train"),
+                                 sharding.DEFAULT_RULES, False)
+        with fake_device_mesh(MESH) as mesh:
+            return dryrun.spmd_count(cell, mesh)
     with fake_device_mesh(MESH) as mesh:
         p = model.init_params(cfg, None, torch.float32, "meta")
         specs = model.param_specs(cfg)
+        x = sharding.distribute_tree(("batch", "seq", "embed"),
+                                     _meta(BATCH, SEQ, cfg.d_model), mesh)
         if what == "block":
-            blk = sharding.distribute_tree(specs["blocks"][0],
-                                           p["blocks"][0], mesh)
-            x = sharding.distribute_tree(("batch", "seq", "embed"),
-                                         _meta(BATCH, SEQ, cfg.d_model),
-                                         mesh)
-            fn = lambda: model._block_apply(
+            args = (sharding.distribute_tree(specs["blocks"][0],
+                                             p["blocks"][0], mesh), x)
+            fn = lambda blk, x: model._block_apply(
                 cfg, blk, x, model._positions_of(x), -1, "attn", cfg.moe,
                 "reference")[0]
         elif what == "prefill":
-            params = sharding.distribute_tree(specs, p, mesh)
-            toks = sharding.distribute_tree(
-                ("batch", "seq"), _meta(BATCH, SEQ, dtype=torch.int32), mesh)
-            fn = lambda: model.forward(cfg, params, {"tokens": toks},
-                                       remat=False)[0]
+            args = (sharding.distribute_tree(specs, p, mesh),
+                    sharding.distribute_tree(
+                        ("batch", "seq"),
+                        _meta(BATCH, SEQ, dtype=torch.int32), mesh))
+            fn = lambda params, toks: model.forward(
+                cfg, params, {"tokens": toks}, remat=False)[0]
         else:                               # the expert-parallel FFN
-            ffn = sharding.distribute_tree(specs["blocks"][0]["ffn"],
-                                           p["blocks"][0]["ffn"], mesh)
-            x = sharding.distribute_tree(("batch", "seq", "embed"),
-                                         _meta(BATCH, SEQ, cfg.d_model),
-                                         mesh)
+            args = (sharding.distribute_tree(specs["blocks"][0]["ffn"],
+                                             p["blocks"][0]["ffn"], mesh), x)
             ep = cfg.replace(moe_dispatch="ep_local")
-            fn = lambda: moe.moe_ffn_ep_local(ffn, ep, x)[0]
+            fn = lambda ffn, x: (lambda o, e: (o, e["aux_loss"]))(
+                *moe.moe_ffn_ep_local(ffn, ep, x))
         with sharding.use_mesh(mesh), implicit_replication(), \
                 torch.no_grad():
-            _, cost = spmd_cost(fn)
-    return cost["collectives"]
+            return spmd_cost(fn, *args)[1]
 
 
 def _as_ints(coll: dict) -> dict:
@@ -254,6 +285,46 @@ def test_one_by_one_mesh_moves_nothing(arch, kind):
     assert got["flops"] == whole["flops"] > 0
 
 
+def test_parallel_mlp_buffers_on_one_by_one_mesh():
+    """relu(x @ w_up) @ w_down on a 1x1 mesh, its arguments x [8, 16, 32],
+    w_up [32, 64], w_down [64, 32] float32 (32,768 bytes): the peak is
+    reached while relu writes its [8, 16, 64] result beside its input
+    (2 x 32,768 bytes); the output is y [8, 16, 32] (16,384), so temp is
+    65,536 - 16,384 and arguments + output + temp is the peak."""
+    b, s, d, f = 8, 16, 32, 64
+    with fake_device_mesh(MeshShape(("data", "model"), (1, 1))) as mesh:
+        rep = [Replicate(), Replicate()]
+        args = [sharding.from_global(_meta(*shape), mesh, rep)
+                for shape in ((b, s, d), (d, f), (f, d))]
+        y, cost = spmd_cost(lambda x, w_up, w_down:
+                            torch.relu(x @ w_up) @ w_down, *args)
+    buf = cost["buffers"]
+    assert tuple(y.to_local().shape) == (b, s, d)
+    assert buf["arguments"] == (b * s * d + 2 * d * f) * 4
+    assert buf["output"] == b * s * d * 4 and buf["alias"] == 0
+    assert buf["peak"] == buf["arguments"] + 2 * b * s * f * 4
+    assert buf["temp"] == 2 * b * s * f * 4 - b * s * d * 4
+    assert buf["unseen"] == [] and cost["collectives"] == {}
+
+
+def test_in_place_update_on_one_by_one_mesh_aliases_its_parameter():
+    """p.sub_(g * 0.1) with p, g [64, 32] float32: the result is p's own
+    storage, so alias bytes equal the parameter's (8,192), and the one
+    temporary is g * 0.1."""
+    with fake_device_mesh(MeshShape(("data", "model"), (1, 1))) as mesh:
+        rep = [Replicate(), Replicate()]
+        p, g = (sharding.from_global(_meta(64, 32), mesh, rep)
+                for _ in range(2))
+        out, cost = spmd_cost(lambda p, g: p.sub_(g * 0.1), p, g)
+    buf = cost["buffers"]
+    assert out is p
+    assert buf["output"] == buf["alias"] == 64 * 32 * 4
+    assert buf["arguments"] == 2 * 64 * 32 * 4
+    assert buf["temp"] == 64 * 32 * 4
+    assert buf["peak"] == buf["arguments"] + buf["output"] + buf["temp"] \
+        - buf["alias"]
+
+
 # ------------------------------------------------------ the production mesh
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "stablelm-12b"])
@@ -280,7 +351,7 @@ def test_block_collectives_equal_jax(jx):
     collectives, kind by kind, as XLA's compiled program (two
     all-reduces of rank 0's [2, 16, 64] float32 activations: after the
     attention's and the MLP's row-parallel projections)."""
-    got = _port(DENSE, "block")
+    got = _port(DENSE, "block")["collectives"]
     print("port", got, "jax", jx[DENSE, "block"]["hlo_cost"])
     assert got == _as_ints(jx[DENSE, "block"]["hlo_cost"])
     assert got == {"all-reduce": 2 * 2 * SEQ * 64 * 4, "count_all-reduce": 2}
@@ -290,7 +361,7 @@ def test_dense_prefill_collectives_equal_jax(jx):
     """The whole reduced phi4-mini prefill (2 layers, the embedding over
     a vocab-sharded table, the tied head): the same collectives as XLA's,
     kind by kind."""
-    got = _port(DENSE, "prefill")
+    got = _port(DENSE, "prefill")["collectives"]
     print("port", got, "jax", jx[DENSE, "prefill"]["hlo_cost"])
     assert got == _as_ints(jx[DENSE, "prefill"]["hlo_cost"])
 
@@ -302,7 +373,7 @@ def test_moe_prefill_collectives_differ_from_jax(jx):
     combine once, XLA all-reduces more, smaller pieces.  Port / JAX, by
     kind: all-reduce bytes 41,088 / 91,648 (9 / 13 ops), all-gather bytes
     37,888 / 7,168 (8 / 6 ops)."""
-    got = _port(MOE, "prefill")
+    got = _port(MOE, "prefill")["collectives"]
     want = _as_ints(jx[MOE, "prefill"]["hlo_cost"])
     print("port", got, "jax", want)
     ratio = {k: Fraction(got[k], want[k]) for k in want}
@@ -324,7 +395,7 @@ def test_ep_local_collectives_against_jax(jx):
     all-reduces on the port and in one on XLA, which combines them into
     one tuple-shaped all-reduce (D8); ``hlo_cost.analyze`` reads that
     tuple as 0 bytes (F10)."""
-    got = _port(MOE, "ep_local")
+    got = _port(MOE, "ep_local")["collectives"]
     want = _as_ints(jx[MOE, "ep_local"]["hlo_cost"])
     print("port", got, "jax", want)
     assert got["all-gather"] == want["all-gather"] == 64 * 8 * 4
@@ -344,3 +415,45 @@ def test_jax_collective_bytes_counts_each_all_reduce_twice(jx):
     hc = _as_ints(jx[DENSE, "block"]["hlo_cost"])
     assert {k: Fraction(cb[k], hc[k]) for k in hc} == {
         "all-reduce": 2, "count_all-reduce": 2}
+
+
+# ---------------------------------------- buffer sizes against XLA's (D9)
+
+CELLS = [(DENSE, "block"), (DENSE, "prefill"), (MOE, "prefill"),
+         (MOE, "ep_local"), (DENSE, "train")]
+# the port's temp bytes over XLA's on the 2 x 2 mesh, measured once (the
+# train step against JAX's dry-run program, which donates nothing)
+D9 = {(DENSE, "block"): Fraction(33024, 24576),
+      (DENSE, "prefill"): Fraction(8452, 80816),
+      (MOE, "prefill"): Fraction(175004, 479856),
+      (MOE, "ep_local"): Fraction(33003, 419472),
+      (DENSE, "train"): Fraction(262156, 140288)}
+
+
+@pytest.mark.parametrize("name,what", CELLS)
+def test_buffer_sizes_against_jax(jx, name, what):
+    """Rank 0's argument and output bytes equal XLA's on each reduced
+    cell (DTensor lays every result out as XLA does here), once XLA's
+    table of its result tuple's buffer pointers, 8 bytes a result where
+    a program returns more than one (37 for the train step, whose layers
+    JAX stacks), is added to the port's; no cell
+    aliases in either program (JAX's dry run donates nothing) but the
+    port's train step, which updates its state in place: its alias
+    bytes are those of XLA's program with the state donated, less the
+    step count's 4 (``optimizer.apply`` makes ``step + 1`` anew).  The
+    temp bytes part from XLA's (eager frees against XLA's buffer reuse)
+    by the ratio measured once (D9)."""
+    got = _port(name, what)["buffers"]
+    want = jx[name, what]["memory"]
+    print("port", got, "jax", want)
+    results = jx[name, what]["results"]
+    table = 8 * results if results > 1 else 0
+    assert got["arguments"] == want["argument"]
+    assert got["output"] + table == want["output"]
+    if what == "train":
+        donated = jx[name, "train_donated"]["memory"]
+        assert got["alias"] == donated["alias"] - 4 > 0
+        assert (want["alias"], donated["output"]) == (0, want["output"])
+    else:
+        assert got["alias"] == want["alias"] == 0
+    assert Fraction(got["temp"], want["temp"]) == D9[name, what]
